@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels (``csrc/``) with a plain PyTorch version and
+a dispatch wrapper beside each.
+
+Each wrapper carries a plain integer ``launches`` counter that it bumps
+where it launches its kernel, and nowhere else, so a run can show that
+the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+def wrappers() -> dict:
+    """Kernel name -> its dispatch wrapper (the launch counters live on
+    these functions)."""
+    from repro_torch.kernels.plan_wave.compact import compact_front
+    from repro_torch.kernels.score_cluster_batch.ops import score_admitted
+    from repro_torch.kernels.score_docs.ops import score_docs
+    from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
+    return {"segment_bound_gemm": segment_bound_gemm,
+            "score_queue": score_admitted,
+            "compact_front": compact_front,
+            "score_docs": score_docs}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
