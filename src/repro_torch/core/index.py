@@ -5,15 +5,10 @@ The build stays numpy on the host, bit-identical to the reference, and
 moves the finished arrays to ``device`` at the end.
 
 ``build_index`` is the host-side (numpy) data-engineering step: it takes a
-sparse corpus + a cluster assignment and emits the padded, quantized,
-TPU-shardable :class:`ClusterIndex`. At production scale this runs sharded
-over the data pipeline (each host builds the clusters it owns); the layout
-below is identical per shard.
-
-The packing core (:func:`pack_clusters`) is shared with the online write
-path: ``lifecycle.MutableIndex`` compaction re-packs the live documents of
-a mutated index through exactly this code, so offline builds and online
-re-segmentation can never diverge in layout or seg_max semantics.
+sparse corpus + a cluster assignment and emits the padded, quantized
+:class:`ClusterIndex`. The packing core (:func:`pack_clusters`) is the one
+the reference's online write path re-packs through, so a later port of
+the lifecycle can share it unchanged.
 """
 
 from __future__ import annotations
@@ -300,8 +295,8 @@ def build_index(
     tw_u8 = np.where(mask, tw_u8, 0).astype(np.uint8)
 
     # term ids are uint16 when the vocab allows (WordPiece's 30522 does):
-    # 3 bytes/posting instead of 5 — the TPU-native stand-in for the
-    # paper's SIMD-BP128 posting compression (EXPERIMENTS.md asc iter 1)
+    # 3 bytes/posting instead of 5, the stand-in for the paper's
+    # SIMD-BP128 posting compression
     tid_dtype = np.uint16 if V < 2**16 else np.int32
     safe_tids = np.where(mask, tids, V).astype(tid_dtype)
 

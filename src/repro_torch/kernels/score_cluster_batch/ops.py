@@ -33,10 +33,11 @@ def score_admitted(index_doc_tids: torch.Tensor, index_doc_tw: torch.Tensor,
     doc_seg_mod/doc_mask: (G, dp) wave metadata; qmaps: (n_q, V + 1).
     Returns (n_q, G, dp) scores with non-admitted pairs at NEG.
 
-    ``block_v`` (vocab chunking) exists for a TPU's VMEM; on the card the
-    transposed query map is gathered from global memory/L2 whole, so an
-    explicit ``block_v`` raises there. On the CPU it is accepted and does
-    not change the result."""
+    ``block_v`` (vocab chunking) exists in the reference to fit the map
+    block into on-chip memory; on the card the transposed query map is
+    gathered from global memory/L2 whole, so an explicit ``block_v``
+    raises there. On the CPU it is accepted and does not change the
+    result."""
     if qmaps.device.type == "cpu":
         cids = plan.cids.long()
         return score_admitted_ref(take_rows(index_doc_tids, cids),
