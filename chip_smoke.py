@@ -251,10 +251,14 @@ def phase_build(torch) -> str:
     t0 = time.perf_counter()
     dev.kernel_lib()
     seconds = time.perf_counter() - t0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError):
+        # the name alone: no number is reported without its power limit
+        card = f"{torch.cuda.get_device_name(0)}, power limit not read"
     log("build", seconds=round(seconds, 3), cached=dev.build_info["cached"],
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         ptxas=[ln for ln in dev.build_info.get("ptxas", [])
@@ -493,6 +497,7 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
     from repro_torch.kernels.score_docs.ref import score_docs_ref
     from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
     from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
+    from repro_torch.core.plan import plan_wave
     from repro_torch.core.types import take_rows, widen_tids
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -544,6 +549,21 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
 
     want = k2_plain()
     err = close(k2(), want, "K2", neg=(want == NEG))
+    # ragged: a partial query block (37 of 48), five tiles, 128-doc
+    # sub-tiles, random segment admission
+    rcids = plan.tile_cids[:5]
+    seg = torch.rand((37, 5, index.n_seg), device=DEVICE) < 0.3
+    rl = rcids.long()
+    rplan = plan_wave(rcids, torch.ones(5, dtype=torch.bool, device=DEVICE),
+                      seg.any(-1), seg, 16, index.doc_seg_mod[rl],
+                      index.doc_mask[rl], block_d=128,
+                      seg_offsets=index.seg_offsets[rl],
+                      sorted_upto=index.sorted_upto[rl])
+    rargs = (index.doc_seg_mod[rl], index.doc_mask[rl], qmaps[:37], rplan,
+             scale)
+    rwant = score_admitted_ref(take_rows(tids, rl), tw[rl], *rargs)
+    close(score_admitted(tids, tw, *rargs), rwant, "K2 ragged",
+          neg=(rwant == NEG))
     # work this wave's data needs: every walked (query, doc) pair sums its
     # doc's nonzero terms; each walked doc tile is read once
     G, n_qb, n_db = plan.dblock.shape
