@@ -33,6 +33,7 @@ share, top kernels).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -339,19 +340,54 @@ def _slice(queries, lo, hi):
                       mask=queries.mask[lo:hi], vocab=queries.vocab)
 
 
-def capture_inputs(engine, queries) -> dict:
-    """Warm-up run of one 64-batch and one 2-batch that records the inputs
-    the main path hands each kernel wrapper (first call of K1, K2 and K4;
-    the six K3 calls of the first wave). Not counted."""
+@contextlib.contextmanager
+def swapped_wrappers(make):
+    """Replace the four kernel wrappers where the main path looks them up
+    (``make(name, wrapper)`` gives the stand-in); restore them on exit."""
     import repro_torch.core.bounds as bounds_mod
     import repro_torch.core.plan as plan_mod
     import repro_torch.core.search as search_mod
 
+    sites = [(bounds_mod, "segment_bound_gemm"),
+             (search_mod, "score_admitted"), (search_mod, "score_docs"),
+             (plan_mod, "compact_front")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name in sites]
+    try:
+        for mod, name, fn in originals:
+            setattr(mod, name, make(name, fn))
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def score_admitted_plain(tids, tw, dseg, dmask, qmaps, plan, scale, **_):
+    """K2's plain version over the wave's gathered tiles, called as the
+    wrapper is (full index arrays; block_v/impl do not change values)."""
+    from repro_torch.core.types import take_rows
+    from repro_torch.kernels.score_cluster_batch.ref import score_admitted_ref
+    cl = plan.cids.long()
+    return score_admitted_ref(take_rows(tids, cl), tw[cl], dseg, dmask,
+                              qmaps, plan, scale)
+
+
+def plain_versions(name, _):
+    """Stand-ins for :func:`swapped_wrappers`: each kernel's plain
+    PyTorch version on the same (card) tensors."""
+    from repro_torch.kernels.plan_wave.compact import compact_front_plain
+    from repro_torch.kernels.score_docs.ref import score_docs_ref
+    from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
+    return {"segment_bound_gemm": segment_bound_gemm_ref,
+            "score_admitted": score_admitted_plain,
+            "score_docs": score_docs_ref,
+            "compact_front": compact_front_plain}[name]
+
+
+def capture_inputs(engine, queries) -> dict:
+    """Warm-up run of one 64-batch and one 2-batch that records the inputs
+    the main path hands each kernel wrapper (first call of K1, K2 and K4;
+    the six K3 calls of the first wave). Not counted."""
     seen: dict = {"compact_front": []}
-    patched = [(bounds_mod, "segment_bound_gemm"),
-               (search_mod, "score_admitted"), (search_mod, "score_docs"),
-               (plan_mod, "compact_front")]
-    originals = {}
 
     def recorder(name, fn):
         def rec(*args, **kw):
@@ -363,15 +399,9 @@ def capture_inputs(engine, queries) -> dict:
             return fn(*args, **kw)
         return rec
 
-    for mod, name in patched:
-        originals[(mod, name)] = getattr(mod, name)
-        setattr(mod, name, recorder(name, getattr(mod, name)))
-    try:
+    with swapped_wrappers(recorder):
         engine.warmup(_slice(queries, 0, 64))
         engine.warmup(_slice(queries, 64, 66))
-    finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
     return seen
 
 
@@ -436,12 +466,13 @@ def phase_serve(geo, index, queries, torch):
         seconds=round(total_s, 4), qps=round(n_served / total_s, 2),
         launches=launches, max_memory_allocated_mb=round(peak / 1e6, 1))
 
-    # kernel path vs plain path on the card, same inputs
+    # kernel path vs plain path on the card, same inputs: all four
+    # wrappers swapped for their plain versions
     q16 = _slice(queries, 582, 598)
     st_k, st_p = {}, {}
     got = retrieve(index, q16, cfg, device=DEVICE, stats=st_k)
-    want = retrieve(index, q16, cfg, device=DEVICE, plain=True,
-                    stats=st_p)
+    with swapped_wrappers(plain_versions):
+        want = retrieve(index, q16, cfg, device=DEVICE, stats=st_p)
     check_same(got, want, "kernel vs plain (16 queries)")
     # safe mode against brute force
     q8 = _slice(queries, 598, 606)
@@ -491,8 +522,7 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
     from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
-    from repro_torch.kernels.score_cluster_batch.ref import (NEG,
-                                                             score_admitted_ref)
+    from repro_torch.kernels.score_cluster_batch.ref import NEG
     from repro_torch.kernels.score_docs.ops import score_docs
     from repro_torch.kernels.score_docs.ref import score_docs_ref
     from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
@@ -500,7 +530,6 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
     from repro_torch.core.plan import plan_wave
     from repro_torch.core.types import take_rows, widen_tids
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
 
     def close(got, want, what, neg=None):
@@ -538,14 +567,12 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
     # ---- K2: the executor ------------------------------------------------
     (tids, tw, dseg, dmask, qmaps, plan, scale), kw = \
         captured["score_admitted"]
-    cl = plan.cids.long()
 
     def k2():
         return score_admitted(tids, tw, dseg, dmask, qmaps, plan, scale, **kw)
 
     def k2_plain():
-        return score_admitted_ref(take_rows(tids, cl), tw[cl], dseg, dmask,
-                                  qmaps, plan, scale)
+        return score_admitted_plain(tids, tw, dseg, dmask, qmaps, plan, scale)
 
     want = k2_plain()
     err = close(k2(), want, "K2", neg=(want == NEG))
@@ -561,7 +588,7 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
                       sorted_upto=index.sorted_upto[rl])
     rargs = (index.doc_seg_mod[rl], index.doc_mask[rl], qmaps[:37], rplan,
              scale)
-    rwant = score_admitted_ref(take_rows(tids, rl), tw[rl], *rargs)
+    rwant = score_admitted_plain(tids, tw, *rargs)
     close(score_admitted(tids, tw, *rargs), rwant, "K2 ragged",
           neg=(rwant == NEG))
     # work this wave's data needs: every walked (query, doc) pair sums its
@@ -663,6 +690,9 @@ def main() -> int:
               f"must sit beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # full fp32 for every GEMM (K1's plain version refuses TF32, and the
+    # library yardstick must compute the same bound)
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_build(torch)
     phase_golden()
     geo, index, queries = scale_world()

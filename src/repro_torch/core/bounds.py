@@ -21,7 +21,6 @@ import torch
 
 from repro_torch.core.types import ClusterIndex, QueryBatch
 from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
-from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
 
 
 def _gather_bounds(table: torch.Tensor, queries: QueryBatch,
@@ -44,32 +43,23 @@ def segment_bounds_gather(index: ClusterIndex,
     return _gather_bounds(index.seg_max, queries, index.scale)
 
 
-def _gemm_bounds(table: torch.Tensor, qmap: torch.Tensor,
-                 scale: torch.Tensor, plain: bool) -> torch.Tensor:
-    if plain:
-        return segment_bound_gemm_ref(table, qmap, scale)
-    return segment_bound_gemm(table, qmap, scale)
-
-
 def segment_bounds_gemm(index: ClusterIndex, queries: QueryBatch,
-                        qmaps: torch.Tensor | None = None,
-                        plain: bool = False) -> torch.Tensor:
+                        qmaps: torch.Tensor | None = None) -> torch.Tensor:
     """Same contraction as one dense GEMM over the vocab axis."""
     if qmaps is None:
         qmaps = queries.dense_map()
     m, n_seg, V = index.seg_max.shape
     table = index.seg_max.reshape(m * n_seg, V)
-    b = _gemm_bounds(table, qmaps[:, :V], index.scale, plain)
+    b = segment_bound_gemm(table, qmaps[:, :V], index.scale)
     return b.reshape(queries.n_queries, m, n_seg)
 
 
 def cluster_bounds(index: ClusterIndex, queries: QueryBatch,
                    impl: str = "gather",
-                   qmaps: torch.Tensor | None = None,
-                   plain: bool = False) -> dict[str, torch.Tensor]:
+                   qmaps: torch.Tensor | None = None
+                   ) -> dict[str, torch.Tensor]:
     """All bound statistics needed by any method, each (n_q, m) (plus
-    ``"segment"`` at (n_q, m, n_seg)). ``plain`` runs the GEMM's plain
-    version on the card (the on-card comparison in chip_smoke.py)."""
+    ``"segment"`` at (n_q, m, n_seg))."""
     m, n_seg, V = index.seg_max.shape
     if impl == "gather":
         b = segment_bounds_gather(index, queries)
@@ -79,7 +69,7 @@ def cluster_bounds(index: ClusterIndex, queries: QueryBatch,
         if qmaps is None:
             qmaps = queries.dense_map()
         fused_table = index.seg_max_stacked.reshape(m * (n_seg + 1), V)
-        fused = _gemm_bounds(fused_table, qmaps[:, :V], index.scale, plain)
+        fused = segment_bound_gemm(fused_table, qmaps[:, :V], index.scale)
         fused = fused.reshape(queries.n_queries, m, n_seg + 1)
         b = fused[..., :n_seg]                           # (n_q, m, n_seg)
         bound_sum = fused[..., n_seg]                    # (n_q, m)

@@ -47,8 +47,7 @@ from repro_torch.core.plan import WavePlan, plan_wave, resolve_block_d
 from repro_torch.core.types import ClusterIndex, QueryBatch, TopK, take_rows
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels.score_cluster_batch.ops import score_admitted
-from repro_torch.kernels.score_cluster_batch.ref import (NEG, SCORE_CHUNK,
-                                                         score_admitted_ref)
+from repro_torch.kernels.score_cluster_batch.ref import NEG, SCORE_CHUNK
 from repro_torch.kernels.score_docs.ops import score_docs
 from repro_torch.kernels.score_docs.ref import score_docs_ref
 
@@ -130,10 +129,10 @@ class SearchConfig:
 # through the 50 MB L2 (it does not fit a block's 227 KB of shared
 # memory), so the budget that matters is what stays L2-resident while a
 # wave runs: the map block, the doc sub-tiles in flight and the plan
-# queues. Half of L2 keeps that set resident beside the output stream,
-# and it is what lets the full-V map (4 * 64 * 30523 bytes = 7.8 MB at
-# block_q 64, WordPiece) go unchunked: block_v resolves to None, the only
-# value the card's executor takes.
+# queues. Half of L2 keeps that set resident beside the output stream
+# (the full-V map is 4 * 64 * 30523 bytes = 7.8 MB at block_q 64,
+# WordPiece). The map is never chunked over the vocab: the executor reads
+# it whole, so ``block_v="auto"`` resolves to None at every vocab.
 L2_BLOCK_BUDGET = 25 * 2**20
 
 
@@ -148,53 +147,43 @@ def plan_buffer_bytes(d_pad: int, n_seg: int, n_qb: int,
 
 
 def autotune_blocks(d_pad: int, t_pad: int, n_seg: int, vocab: int,
-                    n_q: int, group_size: int = 8
-                    ) -> tuple[int, int, int | None]:
-    """Derive (block_q, block_d, block_v) from index geometry + batch size
-    under :data:`L2_BLOCK_BUDGET`, with the reference's arithmetic: the
-    resident set of one executor step is
+                    n_q: int, group_size: int = 8) -> tuple[int, int]:
+    """Derive (block_q, block_d) from index geometry + batch size under
+    :data:`L2_BLOCK_BUDGET`, with the reference's arithmetic less its
+    vocab chunking: the resident set of one executor step is
 
-        4 * BQ * BV          query-map block
+        4 * BQ * (V + 1)     query-map block
       + 3 * BD * t_pad       doc sub-tile ids (2B) + weights (1B)
       + 4 * BQ * BD          output block
       + plan_buffer_bytes    the wave's plan queues + masks
 
-    block_q is the power of two covering the batch, capped at 64; block_v
-    chunks the map only when the full-V block would exceed half the
-    budget; block_d spends the remainder but never exceeds ~one sub-tile
-    per two segments."""
+    block_q is the power of two covering the batch, capped at 64; block_d
+    spends the remainder but never exceeds ~one sub-tile per two
+    segments."""
     bq = 1
     while bq < min(64, max(n_q, 1)):
         bq *= 2
-    v_cols = vocab + 1
-    if 4 * bq * v_cols <= L2_BLOCK_BUDGET // 2:
-        bv = None
-        map_bytes = 4 * bq * v_cols
-    else:
-        bv = 512
-        while 4 * bq * bv * 2 <= L2_BLOCK_BUDGET // 2:
-            bv *= 2
-        map_bytes = 4 * bq * bv
     n_qb = -(-max(n_q, 1) // bq)
-    rem = max(L2_BLOCK_BUDGET - map_bytes
+    rem = max(L2_BLOCK_BUDGET - 4 * bq * (vocab + 1)
               - plan_buffer_bytes(d_pad, n_seg, n_qb, group_size), 0)
     bd_cap = max(8, rem // (3 * t_pad + 4 * bq))
     bd_req = max(8, min(int(bd_cap), max(1, d_pad // max(2 * n_seg, 4))))
-    return bq, resolve_block_d(d_pad, bd_req), bv
+    return bq, resolve_block_d(d_pad, bd_req)
 
 
 def resolve_blocks(index: ClusterIndex, n_q: int,
                    cfg: SearchConfig) -> tuple[int, int, int | None]:
-    """``"auto"`` entries come from :func:`autotune_blocks`; explicit
-    SearchConfig values pass through (block_d rounds up to a divisor)."""
-    bq, bd, bv = cfg.block_q, cfg.block_d, cfg.block_v
-    if "auto" in (bq, bd, bv):
-        a_bq, a_bd, a_bv = autotune_blocks(index.d_pad, index.t_pad,
-                                           index.n_seg, index.vocab, n_q,
-                                           cfg.group_size)
+    """(block_q, block_d, block_v): ``"auto"`` block_q/block_d come from
+    :func:`autotune_blocks` and ``"auto"`` block_v is None (no vocab
+    chunking); explicit SearchConfig values pass through (block_d rounds
+    up to a divisor)."""
+    bq, bd = cfg.block_q, cfg.block_d
+    if "auto" in (bq, bd):
+        a_bq, a_bd = autotune_blocks(index.d_pad, index.t_pad, index.n_seg,
+                                     index.vocab, n_q, cfg.group_size)
         bq = a_bq if bq == "auto" else bq
         bd = a_bd if bd == "auto" else bd
-        bv = a_bv if bv == "auto" else bv
+    bv = None if cfg.block_v == "auto" else cfg.block_v
     return bq, resolve_block_d(index.d_pad, bd), bv
 
 
@@ -206,14 +195,11 @@ def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _score_docs(index: ClusterIndex, cluster_ids: torch.Tensor,
-                qmap: torch.Tensor, plain: bool) -> torch.Tensor:
+                qmap: torch.Tensor) -> torch.Tensor:
     """(G, d_pad) scores for the given clusters (one query)."""
     cids = cluster_ids.long()
     tids = take_rows(index.doc_tids, cids)                  # (G, dp, tp)
-    tw = index.doc_tw[cids]
-    if plain:
-        return score_docs_ref(tids, tw, qmap, index.scale)
-    return score_docs(tids, tw, qmap, index.scale)
+    return score_docs(tids, index.doc_tw[cids], qmap, index.scale)
 
 
 def _int32(x, device) -> torch.Tensor:
@@ -277,7 +263,7 @@ def _search_one_query(index: ClusterIndex, qmap: torch.Tensor,
                       seg_b: torch.Tensor, max_s: torch.Tensor,
                       avg_s: torch.Tensor, order_key: torch.Tensor,
                       cfg: SearchConfig, budget: torch.Tensor,
-                      mu: torch.Tensor, eta: torch.Tensor, plain: bool,
+                      mu: torch.Tensor, eta: torch.Tensor,
                       stats: dict) -> tuple:
     """The grouped-visitation loop for a single query (reference engine).
 
@@ -327,7 +313,7 @@ def _search_one_query(index: ClusterIndex, qmap: torch.Tensor,
             seg_admit = torch.ones_like(b, dtype=torch.bool)
         seg_admit = seg_admit & admit[:, None]
 
-        scores = _score_docs(index, cids, qmap, plain)        # (G, d_pad)
+        scores = _score_docs(index, cids, qmap)               # (G, d_pad)
         if n_seg_eff == 1:
             seg_ok = seg_admit[:, :1]
         else:
@@ -416,29 +402,25 @@ def resolve_score_impl(cfg: SearchConfig, n_q: int) -> str:
 
 
 def _execute_wave(index: ClusterIndex, plan: WavePlan, qmaps: torch.Tensor,
-                  cfg: SearchConfig, plain: bool = False) -> torch.Tensor:
+                  cfg: SearchConfig) -> torch.Tensor:
     """Executor half of one wave: (n_q, G, d_pad) admission-masked scores.
-    The wrapper runs K2 on the card over the plan's queues; ``plain``
-    scores the wave's gathered tiles densely with the plain version
-    (whose admission mask also covers a wave with an empty queue)."""
+    The wrapper runs K2 on the card over the plan's queues, and on the CPU
+    scores the wave's gathered tiles densely with the plain version in the
+    ``score_impl`` formulation."""
     cids = plan.cids.long()
-    dseg_mod = index.doc_seg_mod[cids]                      # (G, dp)
-    dmask = index.doc_mask[cids]
-    if plain:
-        return score_admitted_ref(
-            take_rows(index.doc_tids, cids), index.doc_tw[cids], dseg_mod,
-            dmask, qmaps,
-            plan, index.scale, impl=resolve_score_impl(cfg, qmaps.shape[0]))
-    block_v = resolve_blocks(index, qmaps.shape[0], cfg)[2]
-    return score_admitted(index.doc_tids, index.doc_tw, dseg_mod, dmask,
-                          qmaps, plan, index.scale, block_v=block_v)
+    n_q = qmaps.shape[0]
+    return score_admitted(index.doc_tids, index.doc_tw,
+                          index.doc_seg_mod[cids], index.doc_mask[cids],
+                          qmaps, plan, index.scale,
+                          block_v=resolve_blocks(index, n_q, cfg)[2],
+                          impl=resolve_score_impl(cfg, n_q))
 
 
 def _search_batch(index: ClusterIndex, qmaps: torch.Tensor,
                   seg_b: torch.Tensor, max_s: torch.Tensor,
                   avg_s: torch.Tensor, order_key: torch.Tensor,
                   cfg: SearchConfig, budget: torch.Tensor, mu: torch.Tensor,
-                  eta: torch.Tensor, plain: bool, stats: dict) -> tuple:
+                  eta: torch.Tensor, stats: dict) -> tuple:
     """Batch-frontier visitation: every query walks the same cluster
     order, each wave planned (admission -> compact work queues) then
     executed. qmaps (n_q, V+1); seg_b (n_q, m, n_seg); max_s/avg_s/
@@ -505,7 +487,7 @@ def _search_batch(index: ClusterIndex, qmaps: torch.Tensor,
 
         # ---- execute: score the compacted queues (non-admitted docs are
         # exactly NEG) ----
-        scores = _execute_wave(index, plan, qmaps, cfg, plain)
+        scores = _execute_wave(index, plan, qmaps, cfg)
         doc_admit = scores > NEG                              # (n_q, G, dp)
 
         # incremental threshold-filtered merge: top-k of the wave's
@@ -562,7 +544,7 @@ def _method_stats(stats: dict, cfg: SearchConfig) -> tuple:
 
 def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                      cfg: SearchConfig, budget=None, mu_eta=None,
-                     plain: bool = False, stats: dict | None = None) -> tuple:
+                     stats: dict | None = None) -> tuple:
     """(ids, scores, n_docs, n_clusters, n_segments, n_tiles_scored,
     n_tiles_walked, n_docs_walked, n_bounded, n_walked_super,
     n_pruned_super), each leading n_q. The dense query maps are built
@@ -576,7 +558,7 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
     engine = resolved_engine(cfg, nq)
     stats["engine"] = engine
     bstats = cluster_bounds(index, queries, impl=cfg.bounds_impl,
-                            qmaps=qmaps, plain=plain)
+                            qmaps=qmaps)
     seg_b, max_s, avg_s, order_key = _method_stats(bstats, cfg)
     budget = _resolve_budget(cfg, index.m, budget, dev)
     mu, eta = _resolve_mu_eta(cfg, nq, mu_eta, dev)
@@ -589,30 +571,28 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
     if engine == "per_query":
         rows = [_search_one_query(index, qmaps[i], seg_b[i], max_s[i],
                                   avg_s[i], order_key[i], cfg, budget,
-                                  mu[i], eta[i], plain, stats)
+                                  mu[i], eta[i], stats)
                 for i in range(nq)]
         out = tuple(torch.stack([r[j] for r in rows]).to(
             torch.float32 if j == 1 else torch.int32) for j in range(8))
         return out + degenerate
     out = _search_batch(index, qmaps, seg_b, max_s, avg_s, order_key, cfg,
-                        budget, mu, eta, plain, stats)
+                        budget, mu, eta, stats)
     return out + degenerate
 
 
 def retrieve(index: ClusterIndex, queries: QueryBatch, cfg: SearchConfig,
              budget=None, mu_eta=None,
              device: str | torch.device | None = None, *,
-             plain: bool = False, stats: dict | None = None) -> TopK:
+             stats: dict | None = None) -> TopK:
     """Batched cluster-based retrieval with the configured method.
 
     ``budget`` (int or 0-dim tensor) overrides ``cfg.cluster_budget``;
     ``mu_eta`` ((n_q, 2) float32) overrides (cfg.mu, cfg.eta) per query,
     rows satisfying 0 < mu <= eta <= 1 (the caller owns that). The index
     must already live on ``device`` (None: the CUDA card); the queries
-    are moved there. ``plain`` runs the kernels' plain PyTorch versions
-    on the same device (the on-card comparison of chip_smoke.py).
-    ``stats`` (a dict) receives the engine, waves and host syncs."""
+    are moved there. ``stats`` (a dict) receives the engine, waves and host syncs."""
     dev = resolve_device(device)
     check_on(index.doc_tids, dev, "index")
     return TopK(*_retrieve_arrays(index, queries.to(dev), cfg, budget=budget,
-                                  mu_eta=mu_eta, plain=plain, stats=stats))
+                                  mu_eta=mu_eta, stats=stats))

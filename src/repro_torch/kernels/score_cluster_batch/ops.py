@@ -28,7 +28,8 @@ _I32 = (torch.int32,)
 def score_admitted(index_doc_tids: torch.Tensor, index_doc_tw: torch.Tensor,
                    doc_seg_mod: torch.Tensor, doc_mask: torch.Tensor,
                    qmaps: torch.Tensor, plan: WavePlan, scale: torch.Tensor,
-                   *, block_v: int | None = None) -> torch.Tensor:
+                   *, block_v: int | None = None,
+                   impl: str = "chunked") -> torch.Tensor:
     """index_doc_tids/index_doc_tw: the FULL (m, dp, tp) index arrays;
     doc_seg_mod/doc_mask: (G, dp) wave metadata; qmaps: (n_q, V + 1).
     Returns (n_q, G, dp) scores with non-admitted pairs at NEG.
@@ -37,13 +38,14 @@ def score_admitted(index_doc_tids: torch.Tensor, index_doc_tw: torch.Tensor,
     block into on-chip memory; on the card the transposed query map is
     gathered from global memory/L2 whole, so an explicit ``block_v``
     raises there. On the CPU it is accepted and does not change the
-    result."""
+    result, and ``impl`` picks the plain version's dense formulation
+    (``"gather"`` or ``"chunked"``, the same values)."""
     if qmaps.device.type == "cpu":
         cids = plan.cids.long()
         return score_admitted_ref(take_rows(index_doc_tids, cids),
                                   index_doc_tw[cids],
                                   doc_seg_mod, doc_mask, qmaps, plan, scale,
-                                  impl="chunked")
+                                  impl=impl)
     if block_v is not None:
         raise ValueError("block_v chunking is not supported on the card: "
                          "the query map is gathered whole from L2")

@@ -10,7 +10,9 @@ def segment_bound_gemm_ref(table: torch.Tensor, qmap: torch.Tensor,
     """out[q, s] = scale * sum_v table[s, v] * qmap[q, v], in full fp32.
 
     TF32 would round the bound down below true scores and break rank
-    safety, so the switch is set off explicitly for a CUDA call."""
-    if table.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+    safety, so a CUDA call refuses to run with it on: the caller sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False``."""
+    if table.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("segment_bound_gemm_ref needs full fp32: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
     return torch.einsum("sv,qv->qs", table.float(), qmap.float()) * scale

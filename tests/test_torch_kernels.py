@@ -45,9 +45,11 @@ RTOL = 1e-5
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # full fp32 for the plain K1 version, which refuses TF32
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 

@@ -12,6 +12,8 @@ tests/test_plan_wave.py.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +26,16 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import search as tsearch
 from repro_torch.core.plan import PLAN_FIELDS
 from repro_torch.core.types import INDEX_FIELDS
-from repro_torch.kernels.plan_wave.ops import plan_wave_device, queue_lengths
+from repro_torch.kernels.plan_wave.compact import (compact_front,
+                                                   compact_front_plain)
+from repro_torch.kernels.plan_wave.ref import compact_front_ref
 from test_plan_wave import _index
 
 _CACHE: dict = {}
+# every compaction planner's six calls can take: the dispatch (the plain
+# scan on these CPU tensors), the plain scan itself, the argsort reference
+COMPACTIONS = {"kernel": compact_front, "plain": compact_front_plain,
+               "ref": compact_front_ref}
 
 
 def _recorded(layout: str, mu: float, eta: float, budget):
@@ -79,12 +87,12 @@ def test_wave_plan_bit_exact(layout, mu, eta, budget):
                     *jargs, 4, jidx.doc_seg_mod[jc], jidx.doc_mask[jc],
                     block_d=block_d, seg_offsets=jidx.seg_offsets[jc],
                     sorted_upto=jidx.sorted_upto[jc], union_scope=scope)
-                for backend in ("kernel", "plain", "ref"):
-                    tp = plan_wave_device(
-                        *targs, tidx.doc_seg_mod[tc], tidx.doc_mask[tc],
-                        tidx.seg_offsets[tc], tidx.sorted_upto[tc],
-                        block_q=4, block_d=block_d, union_scope=scope,
-                        compaction=backend)
+                for backend, compact in COMPACTIONS.items():
+                    tp = tplan.plan_wave(
+                        *targs, 4, tidx.doc_seg_mod[tc], tidx.doc_mask[tc],
+                        block_d=block_d, seg_offsets=tidx.seg_offsets[tc],
+                        sorted_upto=tidx.sorted_upto[tc], union_scope=scope,
+                        _compact=compact)
                     assert_plan_equal(jp, tp, f"{layout} wave {wave} "
                                       f"block_d {block_d} {scope} "
                                       f"{backend}")
@@ -123,8 +131,7 @@ def test_plan_without_layout_metadata_and_helpers():
                                 tidx.n_seg).numpy(),
         np.asarray(jplan.segment_histogram(jidx.doc_seg_mod[jc],
                                            jidx.doc_mask[jc], jidx.n_seg)))
-    ql = queue_lengths(tp)
-    assert ql["n_blocks"] <= ql["n_tiles"] * tp.n_qb
+    assert int(tp.n_blocks) <= int(tp.n_tiles) * tp.n_qb
 
 
 def test_empty_admission_gives_empty_queues():
@@ -137,14 +144,15 @@ def test_empty_admission_gives_empty_queues():
                          tidx.doc_seg_mod[tc], tidx.doc_mask[tc],
                          seg_offsets=tidx.seg_offsets[tc],
                          sorted_upto=tidx.sorted_upto[tc])
-    assert queue_lengths(tp) == {"n_tiles": 0, "n_blocks": 0, "n_drun": 0,
-                                 "n_dblock": 0}
+    assert [int(tp.n_tiles), int(tp.n_blocks), int(tp.n_drun.sum()),
+            int(tp.n_dblock.sum())] == [0, 0, 0, 0]
 
 
 def test_block_arithmetic():
-    """plan buffers match the reference; explicit blocks pass through; the
-    L2 budget leaves the WordPiece map unchunked at block_q 64 (the only
-    block_v the card's executor takes)."""
+    """plan buffers match the reference; explicit blocks pass through;
+    block_v "auto" is None (no vocab chunking, the only block_v the card's
+    executor takes) even past 2^16 terms at block_q 64, where the
+    reference would chunk."""
     for args in [(64, 4, 2, 8), (2560, 8, 1, 32), (72, 4, 3, 12)]:
         assert tsearch.plan_buffer_bytes(*args) == \
             jsearch.plan_buffer_bytes(*args)
@@ -154,9 +162,14 @@ def test_block_arithmetic():
     _, tidx, _ = _recorded("sorted", 0.7, 0.9, None)
     cfg = tsearch.SearchConfig(k=8, block_q=4, block_d=8, block_v=None)
     assert tsearch.resolve_blocks(tidx, 6, cfg) == (4, 8, None)
-    bq, bd, bv = tsearch.autotune_blocks(2560, 128, 8, 30522, 64, 32)
-    assert (bq, bv) == (64, None) and 2560 % bd == 0
+    bq, bd = tsearch.autotune_blocks(2560, 128, 8, 30522, 64, 32)
+    assert bq == 64 and 2560 % bd == 0
     resident = (4 * bq * 30523 + 3 * bd * 128 + 4 * bq * bd
                 + tsearch.plan_buffer_bytes(2560, 8, 1, 32))
     assert resident <= tsearch.L2_BLOCK_BUDGET
     assert tsearch.autotune_blocks(64, 24, 4, 256, 6)[:1] == (8,)
+    big_vocab = SimpleNamespace(d_pad=2560, t_pad=128, n_seg=8, vocab=70000)
+    assert 4 * 64 * 70001 > tsearch.L2_BLOCK_BUDGET // 2
+    bq, bd, bv = tsearch.resolve_blocks(big_vocab, 64, tsearch.SearchConfig())
+    assert (bq, bv) == (64, None) and 2560 % bd == 0
+    assert jsearch.autotune_blocks(2560, 128, 8, 70000, 64, 8)[2] is not None
