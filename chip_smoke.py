@@ -23,7 +23,10 @@ nonzero and prints no result):
                queries) and safe mode against brute force (8 queries);
   4. kernels — each kernel against its plain version on the card at the
                inputs the main path gave it (captured in a warm-up run
-               that is not counted) and at one ragged shape, with times.
+               that is not counted) and at ragged shapes, with times: K1
+               at both batch sizes the main path gives it (64 and 2), K2
+               at the first wave of a 64-query batch, after a line of its
+               query blocks' union sizes and doc-term hit fractions.
 
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
@@ -237,6 +240,23 @@ def time_ms(fn, target_ms: float = 150.0) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: its kernels, fills and copies
+    summed under torch.profiler, without the host's dispatch between
+    them (which CUDA events around a call include)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
     t_ops = flops / FP32_FLOP_S * 1e3
@@ -361,14 +381,15 @@ def swapped_wrappers(make):
             setattr(mod, name, fn)
 
 
-def score_admitted_plain(tids, tw, dseg, dmask, qmaps, plan, scale, **_):
-    """K2's plain version over the wave's gathered tiles, called as the
-    wrapper is (full index arrays; block_v/impl do not change values)."""
+def score_admitted_plain(tids, tw, dseg, dmask, terms, plan, scale, **_):
+    """K2's plain version over the wave's gathered tiles and the batch's
+    dense maps, called as the wrapper is (full index arrays and the term
+    layout; block_v/impl do not change values)."""
     from repro_torch.core.types import take_rows
     from repro_torch.kernels.score_cluster_batch.ref import score_admitted_ref
     cl = plan.cids.long()
     return score_admitted_ref(take_rows(tids, cl), tw[cl], dseg, dmask,
-                              qmaps, plan, scale)
+                              terms.qmaps, plan, scale)
 
 
 def plain_versions(name, _):
@@ -385,15 +406,18 @@ def plain_versions(name, _):
 
 def capture_inputs(engine, queries) -> dict:
     """Warm-up run of one 64-batch and one 2-batch that records the inputs
-    the main path hands each kernel wrapper (first call of K1, K2 and K4;
-    the six K3 calls of the first wave). Not counted."""
-    seen: dict = {"compact_front": []}
+    the main path hands each kernel wrapper (first call of K2 and K4, K1's
+    call at each batch size; the six K3 calls of the first wave). Not
+    counted."""
+    seen: dict = {"compact_front": [], "segment_bound_gemm": {}}
 
     def recorder(name, fn):
         def rec(*args, **kw):
             if name == "compact_front":
                 if len(seen[name]) < 6:
                     seen[name].append(args[0].clone())
+            elif name == "segment_bound_gemm":
+                seen[name].setdefault(args[1].n_queries, args)
             elif name not in seen:
                 seen[name] = (args, kw)
             return fn(*args, **kw)
@@ -516,9 +540,9 @@ def phase_profile(engine, queries, torch) -> None:
         top=[[k[:80], round(ms, 3), n] for k, ms, n in dev[:12]])
 
 
-def phase_kernels(index, captured, launches, torch) -> list[dict]:
+def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
-    (plus one ragged shape), with kernel, plain and library times."""
+    (plus ragged shapes), with kernel, plain and library times."""
     from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
@@ -528,7 +552,8 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
     from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
     from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
     from repro_torch.core.plan import plan_wave
-    from repro_torch.core.types import take_rows, widen_tids
+    from repro_torch.core.types import QueryBatch, take_rows, widen_tids
+    from repro_torch.kernels.query_terms import query_terms
 
     rows = []
 
@@ -542,77 +567,135 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
                                  f"version beyond rtol {RTOL}")
         return float((got - want).abs().max()) if got.numel() else 0.0
 
-    # ---- K1: the bound GEMM --------------------------------------------
-    (table, qmap, scale), _ = captured["segment_bound_gemm"]
-    S, V = table.shape
-    Q = qmap.shape[0]
-    err = close(segment_bound_gemm(table, qmap, scale),
-                segment_bound_gemm_ref(table, qmap, scale), "K1")
-    rag = (torch.randint(0, 256, (1001, 777), dtype=torch.uint8,
-                         device=DEVICE),
-           torch.rand((3, 780), device=DEVICE)[:, :777], scale)
-    close(segment_bound_gemm(*rag), segment_bound_gemm_ref(*rag), "K1 ragged")
-    b_ms, b_by = bound(S * V + Q * V * 4 + Q * S * 4, 2.0 * Q * S * V)
+    # ---- K1: the segment bounds, at both batch sizes of the main path ----
+    k1 = {}
+    for Q, (table, terms, scale) in sorted(
+            captured["segment_bound_gemm"].items(), reverse=True):
+        S, V = table.shape
+        err = close(segment_bound_gemm(table, terms, scale),
+                    segment_bound_gemm_ref(table, terms, scale), f"K1 Q={Q}")
+        qmap = terms.qmaps[:, :V]
+        nnz = int(terms.count.sum())
+        union = int(torch.unique(terms.tids[terms.tids < V]).numel())
+        # the work these queries need: one FMA per (query term, row) and
+        # each table byte of the batch's union of terms read once
+        b_ms, b_by = bound(union * S + terms.tids.numel() * 8 + Q * 4
+                           + Q * S * 4, 2.0 * nnz * S)
+        k1[Q] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: segment_bound_gemm(table, terms, scale)),
+            device_ms=device_ms(
+                lambda: segment_bound_gemm(table, terms, scale)),
+            plain_ms=time_ms(
+                lambda: segment_bound_gemm_ref(table, terms, scale)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: (qmap @ table.float().T) * scale),
+            dense_bound_ms=bound(S * V + Q * V * 4 + Q * S * 4,
+                                 2.0 * Q * S * V)[0],
+            table_stream_ms=S * V / HBM_BYTES_S * 1e3,
+            shape=dict(S=S, Q=Q, V=V, q_pad=terms.q_pad, nnz=nnz,
+                       union_terms=union))
+    # ragged: rows of every alignment (V = 777), 70 queries (two query
+    # blocks), one with more than q_pad = 32 terms and one with none
+    rng = np.random.default_rng(SEED)
+    n_terms = [40, 0] + [23] * 68
+    r_tids = np.full((70, 48), -1, np.int32)
+    r_tw = np.zeros((70, 48), np.float32)
+    for r, k in enumerate(n_terms):
+        r_tids[r, :k] = rng.choice(777, k, replace=False)
+        r_tw[r, :k] = rng.random(k) + 0.05
+    r_terms = query_terms(QueryBatch(
+        tids=torch.from_numpy(r_tids), tw=torch.from_numpy(r_tw),
+        mask=torch.from_numpy(r_tids >= 0), vocab=777).to(DEVICE))
+    r_table = torch.randint(0, 256, (1001, 777), dtype=torch.uint8,
+                            device=DEVICE)
+    close(segment_bound_gemm(r_table, r_terms, scale),
+          segment_bound_gemm_ref(r_table, r_terms, scale), "K1 ragged")
+    big, small = k1[max(k1)], k1[min(k1)]
     rows.append(dict(
         name="segment_bound_gemm", route="cuda",
         source="src/repro_torch/kernels/csrc/segment_bound.cu",
         replaces="src/repro/kernels/segment_bound/segment_bound.py:54",
-        launches=launches["segment_bound_gemm"], max_abs_err=err,
-        ms=time_ms(lambda: segment_bound_gemm(table, qmap, scale)),
-        plain_ms=time_ms(lambda: segment_bound_gemm_ref(table, qmap, scale)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: (qmap @ table.float().T) * scale),
-        shape=dict(S=S, Q=Q, V=V)))
+        launches=launches["segment_bound_gemm"],
+        **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "device_ms")},
+        dense_bound_ms=big["dense_bound_ms"],
+        table_stream_ms=big["table_stream_ms"], shape=big["shape"],
+        small_batch=small))
 
     # ---- K2: the executor ------------------------------------------------
-    (tids, tw, dseg, dmask, qmaps, plan, scale), kw = \
+    (tids, tw, dseg, dmask, terms, plan, scale), kw = \
         captured["score_admitted"]
 
     def k2():
-        return score_admitted(tids, tw, dseg, dmask, qmaps, plan, scale, **kw)
+        return score_admitted(tids, tw, dseg, dmask, terms, plan, scale, **kw)
 
     def k2_plain():
-        return score_admitted_plain(tids, tw, dseg, dmask, qmaps, plan, scale)
+        return score_admitted_plain(tids, tw, dseg, dmask, terms, plan, scale)
 
     want = k2_plain()
     err = close(k2(), want, "K2", neg=(want == NEG))
     # ragged: a partial query block (37 of 48), five tiles, 128-doc
-    # sub-tiles, random segment admission
+    # sub-tiles, random segment admission; then the same over the
+    # collapsed (n_seg == 1) table
     rcids = plan.tile_cids[:5]
-    seg = torch.rand((37, 5, index.n_seg), device=DEVICE) < 0.3
     rl = rcids.long()
-    rplan = plan_wave(rcids, torch.ones(5, dtype=torch.bool, device=DEVICE),
-                      seg.any(-1), seg, 16, index.doc_seg_mod[rl],
-                      index.doc_mask[rl], block_d=128,
-                      seg_offsets=index.seg_offsets[rl],
-                      sorted_upto=index.sorted_upto[rl])
-    rargs = (index.doc_seg_mod[rl], index.doc_mask[rl], qmaps[:37], rplan,
-             scale)
-    rwant = score_admitted_plain(tids, tw, *rargs)
-    close(score_admitted(tids, tw, *rargs), rwant, "K2 ragged",
-          neg=(rwant == NEG))
-    # work this wave's data needs: every walked (query, doc) pair sums its
-    # doc's nonzero terms; each walked doc tile is read once
+    q37 = query_terms(_slice(queries, 0, 37).to(DEVICE), 16)
+    for n_seg in (index.n_seg, 1):
+        seg = torch.rand((37, 5, n_seg), device=DEVICE) < 0.3
+        rplan = plan_wave(rcids, torch.ones(5, dtype=torch.bool,
+                                            device=DEVICE),
+                          seg.any(-1), seg, 16, index.doc_seg_mod[rl],
+                          index.doc_mask[rl], block_d=128,
+                          seg_offsets=index.seg_offsets[rl],
+                          sorted_upto=index.sorted_upto[rl])
+        rargs = (index.doc_seg_mod[rl], index.doc_mask[rl], q37, rplan,
+                 scale)
+        rwant = score_admitted_plain(tids, tw, *rargs)
+        close(score_admitted(tids, tw, *rargs), rwant,
+              f"K2 ragged (n_seg {n_seg})", neg=(rwant == NEG))
+    # work this wave's data needs: each walked (query, doc) pair applies
+    # one FMA per doc term its query holds; each walked doc sub-tile and
+    # the used blocks' layouts are read once, the output written once
     G, n_qb, n_db = plan.dblock.shape
-    bd, bq, n_q = plan.block_d, plan.block_q, qmaps.shape[0]
+    bd, bq, n_q = plan.block_d, plan.block_q, terms.n_queries
+    V1, dp, tp = terms.vocab + 1, index.d_pad, index.t_pad
     live = (torch.arange(n_db, device=DEVICE)[None, None]
             < plan.n_dblock[:, :, None]).to(torch.uint8)
     visited = torch.zeros((G, n_qb, n_db), dtype=torch.uint8, device=DEVICE)
     visited = visited.scatter_reduce_(2, plan.dblock.long(), live,
                                       reduce="amax").bool()
-    tile_ok = (torch.arange(G, device=DEVICE) < plan.n_tiles)
-    nnz = (tw[plan.tile_cids.long()] != 0).sum(-1)            # (G, dp)
-    nnz_sub = nnz.reshape(G, n_db, bd).sum(-1)                # (G, n_db)
-    q_in = (n_q - plan.qblock.long() * bq).clamp(0, bq)       # (G, n_qb)
-    pair_terms = (visited * nnz_sub[:, None, :]).sum(-1) * q_in
-    flops = 2.0 * float((pair_terms * tile_ok[:, None]).sum())
-    walked_doc_sub = (visited.any(1) & tile_ok[:, None]).sum()
-    tile_bytes = float(walked_doc_sub) * bd * index.t_pad * (
-        tids.element_size() + 1)
-    walked_pairs = float((visited.sum(-1) * q_in * tile_ok[:, None]).sum()
-                         ) * bd
-    b_ms, b_by = bound(tile_bytes + qmaps.numel() * 4 + walked_pairs * 4,
-                       flops)
+    visited &= (torch.arange(G, device=DEVICE) < plan.n_tiles)[:, None, None]
+    n_blk = terms.bitmap.shape[0]
+    qm = torch.zeros((n_blk * bq, V1), device=DEVICE)
+    qm[:n_q] = terms.qmaps
+    per_term = (qm.reshape(n_blk, bq, V1) != 0).sum(1)       # (n_blk, V1)
+    tcl = plan.tile_cids.long()
+    tid_t = widen_tids(take_rows(tids, tcl)).reshape(G, 1, dp * tp)
+    nz = (tw[tcl] != 0).reshape(G, 1, dp * tp)
+    qbl = plan.qblock.long()
+    per_slot = torch.gather(per_term[qbl], 2,
+                            tid_t.expand(G, n_qb, dp * tp)) * nz
+    fma = per_slot.reshape(G, n_qb, n_db, bd * tp).sum(-1)
+    hit = (per_slot > 0).reshape(G, n_qb, n_db, bd * tp).sum(-1)
+    slots = nz.reshape(G, 1, n_db, bd * tp).sum(-1).expand(G, n_qb, n_db)
+    blocks = []
+    for b in sorted(set(qbl[visited.any(-1)].tolist())):
+        sel = visited & (qbl == b)[..., None]
+        blocks.append(dict(
+            block=b, union_terms=int(terms.n_union[b]),
+            entries=int(terms.term_ptr[b, -1]),
+            walked_doc_terms=int(slots[sel].sum()),
+            hit_fraction=float(hit[sel].sum()) / max(int(slots[sel].sum()),
+                                                     1)))
+    log("k2_blocks", wave=0, block_q=bq, blocks=blocks)
+    walked_sub = int((visited.any(1)).sum())
+    layout = sum(8 * terms.n_words + 4 * (d["union_terms"] + 1)
+                 + 8 * d["entries"] for d in blocks)
+    b_ms, b_by = bound(walked_sub * bd * tp * (tids.element_size() + 1)
+                       + layout + n_q * G * dp * 4
+                       + plan.seg_admit.numel() + G * dp * 5,
+                       2.0 * float((fma * visited).sum()))
     rows.append(dict(
         name="score_queue", route="cuda",
         source="src/repro_torch/kernels/csrc/score_queue.cu",
@@ -620,7 +703,8 @@ def phase_kernels(index, captured, launches, torch) -> list[dict]:
                   "score_cluster_batch.py:146"),
         launches=launches["score_queue"], max_abs_err=err,
         ms=time_ms(k2), plain_ms=time_ms(k2_plain), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=None, timed="the wrapper (NEG fill and "
+        "one launch)", device_ms=device_ms(k2),
         shape=dict(n_q=n_q, G=G, n_qb=n_qb, n_db=n_db, block_q=bq,
                    block_d=bd, n_tiles=int(plan.n_tiles),
                    n_blocks=int(plan.n_blocks),
@@ -697,7 +781,7 @@ def main() -> int:
     phase_golden()
     geo, index, queries = scale_world()
     engine, launches, captured = phase_serve(geo, index, queries, torch)
-    rows = phase_kernels(index, captured, launches, torch)
+    rows = phase_kernels(index, queries, captured, launches, torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
     print(json.dumps({"kernels": rows}), flush=True)

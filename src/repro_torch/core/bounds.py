@@ -9,10 +9,11 @@ port of ``repro/core/bounds.py``).
 Two implementations of the same contraction:
   * ``gather`` — gather the ``q_pad`` query columns of the table and dot
     with the query weights (plain PyTorch on either device);
-  * ``gemm``   — one GEMM of the stored stacked table, reshaped for free to
-    ``(m * (n_seg + 1), V)``, against the dense query maps, so segment
-    bounds and BoundSum come out of one contraction. On the card this is
-    the K1 kernel (``kernels/segment_bound``).
+  * ``gemm``   — one contraction of the stored stacked table, reshaped
+    for free to ``(m * (n_seg + 1), V)``, against the queries, so segment
+    bounds and BoundSum come out of one pass. The queries go in as term
+    lists (``kernels/query_terms.py``); on the card this is the K1
+    kernel (``kernels/segment_bound``), which reads only their terms.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.types import ClusterIndex, QueryBatch
+from repro_torch.kernels.query_terms import QueryTerms, query_terms
 from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
 
 
@@ -44,32 +46,33 @@ def segment_bounds_gather(index: ClusterIndex,
 
 
 def segment_bounds_gemm(index: ClusterIndex, queries: QueryBatch,
-                        qmaps: torch.Tensor | None = None) -> torch.Tensor:
-    """Same contraction as one dense GEMM over the vocab axis."""
-    if qmaps is None:
-        qmaps = queries.dense_map()
+                        terms: QueryTerms | None = None) -> torch.Tensor:
+    """Same contraction as one pass over the table's rows."""
+    if terms is None:
+        terms = query_terms(queries)
     m, n_seg, V = index.seg_max.shape
     table = index.seg_max.reshape(m * n_seg, V)
-    b = segment_bound_gemm(table, qmaps[:, :V], index.scale)
+    b = segment_bound_gemm(table, terms, index.scale)
     return b.reshape(queries.n_queries, m, n_seg)
 
 
 def cluster_bounds(index: ClusterIndex, queries: QueryBatch,
                    impl: str = "gather",
-                   qmaps: torch.Tensor | None = None
+                   terms: QueryTerms | None = None
                    ) -> dict[str, torch.Tensor]:
     """All bound statistics needed by any method, each (n_q, m) (plus
-    ``"segment"`` at (n_q, m, n_seg))."""
+    ``"segment"`` at (n_q, m, n_seg)). ``terms``: the batch's term
+    layout, built here when not given (``gemm`` only)."""
     m, n_seg, V = index.seg_max.shape
     if impl == "gather":
         b = segment_bounds_gather(index, queries)
         bound_sum = _gather_bounds(index.seg_max_collapsed[:, None, :],
                                    queries, index.scale)[..., 0]
     elif impl == "gemm":
-        if qmaps is None:
-            qmaps = queries.dense_map()
+        if terms is None:
+            terms = query_terms(queries)
         fused_table = index.seg_max_stacked.reshape(m * (n_seg + 1), V)
-        fused = segment_bound_gemm(fused_table, qmaps[:, :V], index.scale)
+        fused = segment_bound_gemm(fused_table, terms, index.scale)
         fused = fused.reshape(queries.n_queries, m, n_seg + 1)
         b = fused[..., :n_seg]                           # (n_q, m, n_seg)
         bound_sum = fused[..., n_seg]                    # (n_q, m)

@@ -46,6 +46,7 @@ from repro_torch.core.bounds import cluster_bounds
 from repro_torch.core.plan import WavePlan, plan_wave, resolve_block_d
 from repro_torch.core.types import ClusterIndex, QueryBatch, TopK, take_rows
 from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels.query_terms import QueryTerms, query_terms
 from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import NEG, SCORE_CHUNK
 from repro_torch.kernels.score_docs.ops import score_docs
@@ -124,15 +125,13 @@ class SearchConfig:
                 "'Pipelined engine')")
 
 
-# Executor resident-set target for block autotuning. On the H100 the K2
-# executor gathers the transposed query-map block from global memory
-# through the 50 MB L2 (it does not fit a block's 227 KB of shared
-# memory), so the budget that matters is what stays L2-resident while a
-# wave runs: the map block, the doc sub-tiles in flight and the plan
-# queues. Half of L2 keeps that set resident beside the output stream
-# (the full-V map is 4 * 64 * 30523 bytes = 7.8 MB at block_q 64,
-# WordPiece). The map is never chunked over the vocab: the executor reads
-# it whole, so ``block_v="auto"`` resolves to None at every vocab.
+# Executor resident-set target for block autotuning, kept as the
+# reference's arithmetic so the blocks (and so the plans and counters)
+# match it: half of the H100's 50 MB L2 for the query-map block, the doc
+# sub-tiles in flight and the plan queues. The card's K2 reads the
+# queries' term lists (kernels/query_terms.py) rather than a map block,
+# so nothing is chunked over the vocab: ``block_v="auto"`` resolves to
+# None at every vocab.
 L2_BLOCK_BUDGET = 25 * 2**20
 
 
@@ -401,30 +400,30 @@ def resolve_score_impl(cfg: SearchConfig, n_q: int) -> str:
     return "chunked" if n_q > SCORE_CHUNK else "gather"
 
 
-def _execute_wave(index: ClusterIndex, plan: WavePlan, qmaps: torch.Tensor,
+def _execute_wave(index: ClusterIndex, plan: WavePlan, terms: QueryTerms,
                   cfg: SearchConfig) -> torch.Tensor:
     """Executor half of one wave: (n_q, G, d_pad) admission-masked scores.
-    The wrapper runs K2 on the card over the plan's queues, and on the CPU
-    scores the wave's gathered tiles densely with the plain version in the
-    ``score_impl`` formulation."""
+    The wrapper runs K2 on the card over the plan's queues and the batch's
+    term layout, and on the CPU scores the wave's gathered tiles densely
+    with the plain version in the ``score_impl`` formulation."""
     cids = plan.cids.long()
-    n_q = qmaps.shape[0]
+    n_q = terms.n_queries
     return score_admitted(index.doc_tids, index.doc_tw,
                           index.doc_seg_mod[cids], index.doc_mask[cids],
-                          qmaps, plan, index.scale,
+                          terms, plan, index.scale,
                           block_v=resolve_blocks(index, n_q, cfg)[2],
                           impl=resolve_score_impl(cfg, n_q))
 
 
-def _search_batch(index: ClusterIndex, qmaps: torch.Tensor,
+def _search_batch(index: ClusterIndex, terms: QueryTerms,
                   seg_b: torch.Tensor, max_s: torch.Tensor,
                   avg_s: torch.Tensor, order_key: torch.Tensor,
                   cfg: SearchConfig, budget: torch.Tensor, mu: torch.Tensor,
                   eta: torch.Tensor, stats: dict) -> tuple:
     """Batch-frontier visitation: every query walks the same cluster
     order, each wave planned (admission -> compact work queues) then
-    executed. qmaps (n_q, V+1); seg_b (n_q, m, n_seg); max_s/avg_s/
-    order_key (n_q, m); mu/eta (n_q,)."""
+    executed. terms: the batch's term layout, blocked by block_q; seg_b
+    (n_q, m, n_seg); max_s/avg_s/order_key (n_q, m); mu/eta (n_q,)."""
     m, G, k = index.m, cfg.group_size, cfg.k
     dp = index.d_pad
     dev = order_key.device
@@ -487,7 +486,7 @@ def _search_batch(index: ClusterIndex, qmaps: torch.Tensor,
 
         # ---- execute: score the compacted queues (non-admitted docs are
         # exactly NEG) ----
-        scores = _execute_wave(index, plan, qmaps, cfg)
+        scores = _execute_wave(index, plan, terms, cfg)
         doc_admit = scores > NEG                              # (n_q, G, dp)
 
         # incremental threshold-filtered merge: top-k of the wave's
@@ -547,18 +546,20 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                      stats: dict | None = None) -> tuple:
     """(ids, scores, n_docs, n_clusters, n_segments, n_tiles_scored,
     n_tiles_walked, n_docs_walked, n_bounded, n_walked_super,
-    n_pruned_super), each leading n_q. The dense query maps are built
-    once and shared by the bound pass and scoring."""
+    n_pruned_super), each leading n_q. The queries' term layout
+    (kernels/query_terms.py) is built once and shared by the bound pass
+    and scoring; the per-query engine reads its dense maps."""
     if stats is None:
         stats = {}
     stats.update(waves=0, host_syncs=0)
     dev = index.device
-    qmaps = queries.dense_map()                               # (n_q, V+1)
     nq = queries.n_queries
     engine = resolved_engine(cfg, nq)
     stats["engine"] = engine
+    terms = query_terms(queries, resolve_blocks(index, nq, cfg)[0]
+                        if engine == "batched" else None)
     bstats = cluster_bounds(index, queries, impl=cfg.bounds_impl,
-                            qmaps=qmaps)
+                            terms=terms)
     seg_b, max_s, avg_s, order_key = _method_stats(bstats, cfg)
     budget = _resolve_budget(cfg, index.m, budget, dev)
     mu, eta = _resolve_mu_eta(cfg, nq, mu_eta, dev)
@@ -569,6 +570,7 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                              device=dev),
                   torch.zeros((nq,), dtype=torch.int32, device=dev))
     if engine == "per_query":
+        qmaps = terms.qmaps                                   # (n_q, V+1)
         rows = [_search_one_query(index, qmaps[i], seg_b[i], max_s[i],
                                   avg_s[i], order_key[i], cfg, budget,
                                   mu[i], eta[i], stats)
@@ -576,7 +578,7 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
         out = tuple(torch.stack([r[j] for r in rows]).to(
             torch.float32 if j == 1 else torch.int32) for j in range(8))
         return out + degenerate
-    out = _search_batch(index, qmaps, seg_b, max_s, avg_s, order_key, cfg,
+    out = _search_batch(index, terms, seg_b, max_s, avg_s, order_key, cfg,
                         budget, mu, eta, stats)
     return out + degenerate
 

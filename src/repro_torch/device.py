@@ -41,19 +41,27 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# shared memory one block may use on the H100 (232,448 bytes)
+SMEM_LIMIT = 227 * 1024
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # C signature of every entry point in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
-    # table, qmap, qmap row stride, scale, out, S, Q, V, stream
-    "segment_bound_gemm": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # table, term ids, term weights, term counts, q_pad, scale, out,
+    # S, Q, V, queries a block, rows a block, row buffer bytes, stream
+    "segment_bound_gemm": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P],
     # keep, idx, count, rows, n, stream
     "compact_front": [_P, _P, _P, _I, _I, _P],
-    # tids, tid_bytes, tw, qmap_t, n_q_pad, tile_cids, tile_pos, n_tiles,
-    # qblock, n_qblock, dblock, n_dblock, dmask, out,
-    # G, n_qb, n_db, d_pad, t_pad, block_q, block_d, stream
-    "score_queue": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
+    # tids, tid_bytes, tw, bitmap, prefix, term_ptr, ent_q, ent_w,
+    # n_words, max entries, tile_cids, tile_pos, n_tiles, qblock, n_qblock,
+    # dblock, n_dblock, admit, seg_admit, n_seg, doc_seg_mod, doc_mask,
+    # scale, out, n_q, G, n_qb, n_db, d_pad, t_pad, block_q, block_d,
+    # docs a chunk, stream
+    "score_queue": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # tids, tid_bytes, tw, qmap, scale, out, D, T, V + 1, stream
     "score_docs": [_P, _I, _P, _P, _P, _P, _I64, _I, _I, _P],
 }

@@ -5,7 +5,10 @@ tensor — is held against the JAX package's Pallas kernel (interpret mode,
 as tests/test_kernels.py and tests/test_batched_engine.py run it) and
 against the JAX reference, on the same numpy inputs:
 
-  * K1 segment-bound GEMM: rtol 1e-5 (fp32 sums in another order);
+  * the sparse query layout (kernels/query_terms.py) both kernels read:
+    it rebuilds every query's dense map and every block's transposed map
+    exactly;
+  * K1 segment bounds: rtol 1e-5 (fp32 sums in another order);
   * K3 compaction: bit-exact, empty and full rows included;
   * K2 executor and K4 per-query scoring: rtol 1e-5 on admitted scores,
     NEG positions exact.
@@ -26,12 +29,14 @@ import torch
 from repro_torch.core.index import build_index
 from repro_torch.core.search import SearchConfig, retrieve
 from repro_torch.core.plan import plan_wave
-from repro_torch.core.types import TOPK_FIELDS, take_rows
+from repro_torch.core.types import TOPK_FIELDS, QueryBatch, take_rows
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                    compact_front_plain)
 from repro_torch.kernels.plan_wave.ref import compact_front_ref
+from repro_torch.kernels.query_terms import block_map_t, query_terms
+from repro_torch.kernels.score_cluster_batch import ops as k2_ops
 from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import (NEG,
                                                          score_admitted_ref,
@@ -66,8 +71,106 @@ def _rand_qmap(rng, q, v, density=0.2):
     return (rng.random((q, v)) * m).astype(np.float32)
 
 
+def _batch_from_map(qmap, vocab, seed=0):
+    """A QueryBatch holding the nonzeros of dense (Q, vocab') maps, in a
+    shuffled slot order (the layout sorts them), one PAD slot a row."""
+    rng = np.random.default_rng(seed)
+    q = qmap.shape[0]
+    width = int((qmap != 0).sum(1).max(initial=0)) + 1
+    tids = np.full((q, width), -1, np.int32)
+    tw = np.zeros((q, width), np.float32)
+    for r in range(q):
+        idx = np.flatnonzero(qmap[r])
+        rng.shuffle(idx)
+        tids[r, :len(idx)] = idx
+        tw[r, :len(idx)] = qmap[r, idx]
+    return QueryBatch(tids=_t(tids), tw=_t(tw), mask=_t(tids >= 0),
+                      vocab=vocab)
+
+
 # ---------------------------------------------------------------------------
-# K1: segment-bound GEMM
+# the sparse query layout
+# ---------------------------------------------------------------------------
+
+def _ragged_queries():
+    """37 queries over V = 70: query 5 has no terms, odd queries share
+    the terms 0..19, every row has PAD slots (mask False, and id V)."""
+    rng = np.random.default_rng(11)
+    n_q, qp, V = 37, 8, 70
+    tids = np.full((n_q, qp), -1, np.int32)
+    tw = np.zeros((n_q, qp), np.float32)
+    mask = np.zeros((n_q, qp), bool)
+    for q in range(n_q):
+        k = 0 if q == 5 else int(rng.integers(1, qp - 1))
+        pick = rng.choice(20 if q % 2 else V, k, replace=False)
+        slots = rng.choice(qp, k, replace=False)
+        tids[q, slots] = pick
+        tw[q, slots] = rng.random(k).astype(np.float32) + 0.1
+        mask[q, slots] = True
+    tids[3, ~mask[3]] = V                       # a PAD slot at id V
+    tids[4, np.flatnonzero(~mask[4])[0]] = 7    # masked: not a term
+    return QueryBatch(tids=_t(tids), tw=_t(tw), mask=_t(mask), vocab=V)
+
+
+def _layout_case(name, request):
+    from repro_torch.convert import queries_from_arrays
+    if name == "ragged":
+        return _ragged_queries(), 16, None
+    if name == "golden":
+        _, jq, _, q = _jax_world()
+        return q, 4, jq
+    jq, _ = request.getfixturevalue("queries")       # conftest's SPEC
+    q = queries_from_arrays(np.asarray(jq.tids), np.asarray(jq.tw),
+                            np.asarray(jq.mask), vocab=jq.vocab,
+                            device="cpu")
+    return q, 8, jq
+
+
+@pytest.mark.parametrize("case", ["ragged", "golden", "spec"])
+def test_query_terms_rebuild_dense_maps(case, request):
+    """Each query's term list rebuilds its dense map, and each block's
+    bitmap + prefix counts + CSR rebuild the block's transposed map, the
+    way K2 looks a term up; ids ascend and counts are exact."""
+    queries, bq, jq = _layout_case(case, request)
+    terms = query_terms(queries, bq)
+    dense = queries.dense_map()
+    assert torch.equal(terms.qmaps, dense)
+    if jq is not None:
+        np.testing.assert_array_equal(terms.qmaps.numpy(),
+                                      np.asarray(jq.dense_map()))
+    V = queries.vocab
+    valid = queries.mask & (queries.tids < V)
+    assert torch.equal(terms.count, valid.sum(1, dtype=torch.int32))
+    slot = torch.arange(terms.q_pad)[None]
+    live = slot < terms.count[:, None]
+    assert bool((terms.tids[:, 1:] > terms.tids[:, :-1])[live[:, 1:]].all())
+    assert bool((terms.tids[~live] == V).all())
+    assert bool((terms.tw[~live] == 0).all())
+    n_qb = -(-queries.n_queries // bq)
+    padded = torch.zeros((n_qb * bq, V + 1))
+    padded[:queries.n_queries] = dense
+    for b in range(n_qb):
+        want = padded[b * bq:(b + 1) * bq].T
+        assert torch.equal(block_map_t(terms, b), want), (case, b)
+        union = (want != 0).any(1)
+        assert int(terms.n_union[b]) == int(union.sum())
+        assert int(terms.term_ptr[b, -1]) == int((want != 0).sum())
+    if case == "ragged":
+        assert int(terms.count[5]) == 0
+        assert not bool(terms.qmaps[5].any())
+        assert n_qb * bq > queries.n_queries             # a partial block
+
+
+def test_query_terms_without_blocks():
+    """The per-query part alone (K1, the per-query engine)."""
+    q = _ragged_queries()
+    terms = query_terms(q)
+    assert terms.block_q is None and terms.bitmap is None
+    assert torch.equal(terms.qmaps, q.dense_map())
+
+
+# ---------------------------------------------------------------------------
+# K1: segment bounds
 # ---------------------------------------------------------------------------
 
 K1_SHAPES = [(1, 1, 1), (7, 3, 33), (130, 129, 513), (384, 64, 2048)]
@@ -81,7 +184,8 @@ def test_segment_bound_plain_matches_pallas(s, q, v):
     rng = np.random.default_rng(s * 1000 + q * 10 + v)
     table, qmap = _rand_table(rng, s, v), _rand_qmap(rng, q, v)
     scale = np.float32(0.037)
-    got = segment_bound_gemm(_t(table), _t(qmap), torch.tensor(scale))
+    terms = query_terms(_batch_from_map(qmap, v, seed=s))
+    got = segment_bound_gemm(_t(table), terms, torch.tensor(scale))
     assert got.shape == (q, s) and got.dtype == torch.float32
     for want in (jops.segment_bound_gemm(jnp.asarray(table),
                                          jnp.asarray(qmap), scale),
@@ -92,14 +196,58 @@ def test_segment_bound_plain_matches_pallas(s, q, v):
 
 
 def test_segment_bound_takes_a_column_slice():
-    """The bound pass hands the (Q, V) view of the (Q, V + 1) maps."""
+    """The term lists leave out slot V, so the bounds are those of the
+    (Q, V) view of the (Q, V + 1) maps."""
     rng = np.random.default_rng(5)
     table = _t(_rand_table(rng, 40, 99))
-    wide = _t(_rand_qmap(rng, 6, 100))
+    wide = _rand_qmap(rng, 6, 100)
+    wide[:, 99] = 1.0                              # the pad slot, dropped
     scale = torch.tensor(np.float32(0.5))
-    got = segment_bound_gemm(table, wide[:, :99], scale)
-    want = segment_bound_gemm_ref(table, wide[:, :99].contiguous(), scale)
+    got = segment_bound_gemm(table, query_terms(_batch_from_map(wide, 99)),
+                             scale)
+    want = torch.einsum("sv,qv->qs", table.float(), _t(wide)[:, :99]) * scale
     assert torch.equal(got, want)
+
+
+def test_wrappers_on_golden_world():
+    """K1 and K2 through the term layout on the golden world equal the
+    JAX package's kernels (interpret mode) on its dense maps."""
+    import jax.numpy as jnp
+    from repro.core.plan import plan_wave as jplan_wave
+    from repro.kernels.score_cluster_batch import ops as jk2
+    from repro.kernels.segment_bound import ops as jk1
+    jidx, jq, idx, q = _jax_world()
+    terms = query_terms(q, 4)
+    m, n1, V = idx.seg_max_stacked.shape
+    got = segment_bound_gemm(idx.seg_max_stacked.reshape(m * n1, V), terms,
+                             idx.scale)
+    want = jk1.segment_bound_gemm(jidx.seg_max_stacked.reshape(m * n1, V),
+                                  jq.dense_map()[:, :V], jidx.scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=1e-6)
+    cids = np.arange(idx.m, dtype=np.int32)
+    seg = np.random.default_rng(9).random((q.n_queries, idx.m,
+                                           idx.n_seg)) < 0.5
+    jc = jnp.asarray(cids)
+    jplan = jplan_wave(jc, jnp.ones(idx.m, bool), jnp.asarray(seg.any(-1)),
+                       jnp.asarray(seg), 4, jidx.doc_seg_mod[jc],
+                       jidx.doc_mask[jc], block_d=8,
+                       seg_offsets=jidx.seg_offsets[jc],
+                       sorted_upto=jidx.sorted_upto[jc])
+    tc = torch.from_numpy(cids).long()
+    plan = plan_wave(torch.from_numpy(cids), torch.ones(idx.m, dtype=bool),
+                     _t(seg.any(-1)), _t(seg), 4, idx.doc_seg_mod[tc],
+                     idx.doc_mask[tc], block_d=8,
+                     seg_offsets=idx.seg_offsets[tc],
+                     sorted_upto=idx.sorted_upto[tc])
+    got = score_admitted(idx.doc_tids, idx.doc_tw, idx.doc_seg_mod[tc],
+                         idx.doc_mask[tc], terms, plan, idx.scale).numpy()
+    want = np.asarray(jk2.score_admitted(
+        jidx.doc_tids, jidx.doc_tw, jidx.doc_seg_mod[jc], jidx.doc_mask[jc],
+        jq.dense_map(), jplan, jidx.scale))
+    neg = want == NEG
+    np.testing.assert_array_equal(got == NEG, neg)
+    np.testing.assert_allclose(got[~neg], want[~neg], rtol=RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +339,7 @@ def test_executor_plain_matches_pallas(block_q, block_d, p, seed):
                      seg_offsets=idx.seg_offsets[tc],
                      sorted_upto=idx.sorted_upto[tc])
     qmaps, jqmaps = q.dense_map(), jq.dense_map()
+    terms = query_terms(q, block_q)
     dseg, dmask = idx.doc_seg_mod[tc], idx.doc_mask[tc]
     jdseg, jdmask = jidx.doc_seg_mod[jc], jidx.doc_mask[jc]
     want = np.asarray(jops.score_admitted(
@@ -201,7 +350,7 @@ def test_executor_plain_matches_pallas(block_q, block_d, p, seed):
         jidx.scale))
     outs = {
         "dispatch": score_admitted(idx.doc_tids, idx.doc_tw, dseg, dmask,
-                                   qmaps, plan, idx.scale),
+                                   terms, plan, idx.scale),
         "ref": score_admitted_ref(idx.doc_tids[tc], idx.doc_tw[tc], dseg,
                                   dmask, qmaps, plan, idx.scale),
         "runs_ref": score_runs_ref(idx.doc_tids[tc], idx.doc_tw[tc], dseg,
@@ -264,18 +413,37 @@ def _card_world(device):
     return index, queries.to(device)
 
 
+def _sparse_qmap(rng, q, v, nnz):
+    """(q, v) maps with ``nnz[i]`` terms in row i (0 allowed)."""
+    out = np.zeros((q, v), np.float32)
+    for r, k in enumerate(nnz):
+        out[r, rng.choice(v, min(k, v), replace=False)] = \
+            rng.random(min(k, v)) + 0.05
+    return out
+
+
 @pytest.mark.gpu
 def test_segment_bound_kernel_on_card(cuda):
+    """Dense-ish and sparse term lists, rows of every alignment (V odd),
+    an empty query and one wider than q_pad = 32, and Q above one query
+    block; a table that starts unaligned raises."""
     rng = np.random.default_rng(0)
-    for s, q, v in K1_SHAPES + [(4608, 2, 1000), (333, 65, 3001)]:
+    scale = torch.tensor(np.float32(0.037), device=cuda)
+    cases = [(s, _rand_qmap(rng, q, v)) for s, q, v in K1_SHAPES]
+    cases += [(4608, _sparse_qmap(rng, 2, 1000, [23, 0])),
+              (333, _sparse_qmap(rng, 65, 3001, [23] * 63 + [40, 0])),
+              (1001, _sparse_qmap(rng, 130, 30522, [0, 45] + [23] * 128))]
+    for s, qmap in cases:
+        v = qmap.shape[1]
         table = _t(_rand_table(rng, s, v)).to(cuda)
-        wide = _t(_rand_qmap(rng, q, v + 1)).to(cuda)
-        scale = torch.tensor(np.float32(0.037), device=cuda)
+        terms = query_terms(_batch_from_map(qmap, v).to(cuda))
         before = launch_counts()["segment_bound_gemm"]
-        got = segment_bound_gemm(table, wide[:, :v], scale)
+        got = segment_bound_gemm(table, terms, scale)
         assert launch_counts()["segment_bound_gemm"] == before + 1
-        want = segment_bound_gemm_ref(table, wide[:, :v], scale)
+        want = segment_bound_gemm_ref(table, terms, scale)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-6)
+    with pytest.raises(ValueError, match="aligned"):
+        segment_bound_gemm(table[1:], terms, scale)
 
 
 @pytest.mark.gpu
@@ -289,33 +457,55 @@ def test_compaction_kernel_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_executor_kernel_on_card(cuda):
+def test_executor_kernel_on_card(cuda, monkeypatch):
+    """Partial query blocks (11 queries), several doc blockings, the
+    collapsed n_seg == 1 admission, a sub-tile staged in chunks; an
+    unaligned sub-tile and block_v raise."""
     index, queries = _card_world(cuda)
-    qmaps = queries.dense_map()
     cids = torch.tensor([4, 0, 9, 2, 7], dtype=torch.int32, device=cuda)
+    cl = cids.long()
+    dseg, dmask = index.doc_seg_mod[cl], index.doc_mask[cl]
     rng = np.random.default_rng(1)
-    for block_q, block_d in [(4, 8), (16, 32), (1, None)]:
-        seg_admit = _t(rng.random((queries.n_queries, 5, 4)) < 0.5).to(cuda)
+
+    def run(block_q, block_d, n_seg):
+        seg_admit = _t(rng.random((queries.n_queries, 5, n_seg)) < 0.5
+                       ).to(cuda)
         seg_admit[:, 3] = False
-        cl = cids.long()
         plan = plan_wave(cids, torch.ones(5, dtype=torch.bool, device=cuda),
-                         seg_admit.any(-1), seg_admit, block_q,
-                         index.doc_seg_mod[cl], index.doc_mask[cl],
+                         seg_admit.any(-1), seg_admit, block_q, dseg, dmask,
                          block_d=block_d, seg_offsets=index.seg_offsets[cl],
                          sorted_upto=index.sorted_upto[cl])
-        dseg, dmask = index.doc_seg_mod[cl], index.doc_mask[cl]
-        got = score_admitted(index.doc_tids, index.doc_tw, dseg, dmask, qmaps,
-                             plan, index.scale)
+        terms = query_terms(queries, block_q)
+        got = score_admitted(index.doc_tids, index.doc_tw, dseg, dmask,
+                             terms, plan, index.scale)
         want = score_admitted_ref(take_rows(index.doc_tids, cl),
-                                  index.doc_tw[cl], dseg, dmask, qmaps, plan,
-                                  index.scale)
+                                  index.doc_tw[cl], dseg, dmask,
+                                  terms.qmaps, plan, index.scale)
         neg = want == NEG
-        assert torch.equal(got == NEG, neg)
+        assert torch.equal(got == NEG, neg), (block_q, block_d, n_seg)
         torch.testing.assert_close(got[~neg], want[~neg], rtol=RTOL,
                                    atol=1e-6)
+        return terms, plan
+
+    for block_q, block_d, n_seg in [(4, 8, 4), (16, 32, 4), (1, None, 4),
+                                    (4, 8, 1), (8, None, 1)]:
+        run(block_q, block_d, n_seg)
+    monkeypatch.setattr(k2_ops, "SMEM_BUDGET", 8 * 1024)
+    assert k2_ops.doc_chunk(128, 28, 2, 16, 4, index.vocab // 32 + 1,
+                            16 * queries.q_pad)[0] < 128
+    run(16, None, 4)
+    terms, plan = run(4, 8, 4)
     with pytest.raises(ValueError, match="block_v"):
-        score_admitted(index.doc_tids, index.doc_tw, dseg, dmask, qmaps,
+        score_admitted(index.doc_tids, index.doc_tw, dseg, dmask, terms,
                        plan, index.scale, block_v=128)
+    seg_admit = torch.ones((queries.n_queries, 5, 4), dtype=torch.bool,
+                           device=cuda)
+    plan2 = plan_wave(cids, torch.ones(5, dtype=torch.bool, device=cuda),
+                      seg_admit.any(-1), seg_admit, 4, dseg, dmask,
+                      block_d=2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        score_admitted(index.doc_tids, index.doc_tw, dseg, dmask, terms,
+                       plan2, index.scale)
 
 
 @pytest.mark.gpu
@@ -372,3 +562,14 @@ def test_card_retrieval_equals_cpu_path(cuda):
                     assert torch.equal(g, w), (conf, impl, f)
     after = launch_counts()
     assert all(after[k] > before[k] for k in after)
+
+
+def test_k2_phase_cuts_find_their_loops():
+    """tools/k2_phases.py times K2 with loops cut out of a copy of its
+    source: each cut must still match exactly one loop."""
+    from repro_torch.device import CSRC
+    from repro_torch.tools.k2_phases import BUILDS, CUTS
+    src = (CSRC / "score_queue.cu").read_text()
+    for name, (old, new) in CUTS.items():
+        assert src.count(old) == 1, name
+    assert all(c in CUTS for cuts in BUILDS.values() for c in cuts)
