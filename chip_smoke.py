@@ -6,7 +6,7 @@
 Phases, each printing one JSON line (all must pass, or the script exits
 nonzero and prints no result):
 
-  1. build   — compile the four CUDA kernels from ``kernels/csrc`` and
+  1. build   — compile the five CUDA sources of ``kernels/csrc`` and
                print the build seconds and the card's name and power limit;
   2. golden  — rebuild the golden world of tests/test_golden_regression.py
                with the port's own numpy builders and run its six slice
@@ -18,7 +18,8 @@ nonzero and prints no result):
                m = 512 clusters (about 1.1M documents): RetrievalEngine
                serves 8 batches of 64, 3 batches of 2 (the per-query route)
                and one batch of 64 with mixed per-row (mu, eta). Launch
-               counts are zeroed just before and read just after. Then the
+               counts are zeroed just before and read just after; every
+               kernel of ``kernels.MAIN_PATH`` must have launched. Then the
                kernel path is held against the plain path on the card (16
                queries) and safe mode against brute force (8 queries);
   4. kernels — each kernel against its plain version on the card at the
@@ -26,7 +27,14 @@ nonzero and prints no result):
                that is not counted) and at ragged shapes, with times: K1
                at both batch sizes the main path gives it (64 and 2), K2
                at the first wave of a 64-query batch, after a line of its
-               query blocks' union sizes and doc-term hit fractions.
+               query blocks' union sizes and doc-term hit fractions; the
+               wave planner (K3) bit-exact on every wave of a 64-query
+               batch and on ``tools/plan_cases.py``, timed three ways (the
+               planner kernel, the op-by-op planner on ``compact_front``,
+               the plain planner), with ``compact_front`` still checked on
+               its own; K4 by cluster id against its plain version and
+               timed against the gather + flat ``score_docs`` + mask
+               sequence it replaced.
 
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
@@ -369,8 +377,8 @@ def swapped_wrappers(make):
     import repro_torch.core.search as search_mod
 
     sites = [(bounds_mod, "segment_bound_gemm"),
-             (search_mod, "score_admitted"), (search_mod, "score_docs"),
-             (plan_mod, "compact_front")]
+             (search_mod, "score_admitted"), (search_mod, "score_clusters"),
+             (plan_mod, "plan_wave_kernel")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in sites]
     try:
         for mod, name, fn in originals:
@@ -392,30 +400,65 @@ def score_admitted_plain(tids, tw, dseg, dmask, terms, plan, scale, **_):
                               terms.qmaps, plan, scale)
 
 
+def plan_wave_plain(cids, live, admit, seg_admit, block_q, doc_seg_mod,
+                    doc_mask, block_d, seg_offsets, sorted_upto,
+                    union_scope):
+    """The planner kernel's plain version, called as the kernel's wrapper
+    is: the op-by-op planner on the plain compaction, its queue fields."""
+    from repro_torch.core.plan import plan_wave
+    from repro_torch.kernels.plan_wave.compact import compact_front_plain
+    plan = plan_wave(cids, live, admit, seg_admit, block_q, doc_seg_mod,
+                     doc_mask, block_d=block_d, seg_offsets=seg_offsets,
+                     sorted_upto=sorted_upto, union_scope=union_scope,
+                     _compact=compact_front_plain)
+    return {f: getattr(plan, f) for f in PLANNED}
+
+
+# the WavePlan fields the planner kernel writes
+PLANNED = ("tile_cids", "tile_pos", "n_tiles", "qblock", "n_qblock",
+           "n_blocks", "drun_start", "drun_len", "n_drun", "dblock",
+           "n_dblock", "dmask_union")
+
+
+def score_clusters_plain(tids, tw, dseg, dmask, cids, seg_admit, terms, i,
+                         scale):
+    """K4's plain version, called as its wrapper is: the gathered tiles
+    against the query's dense map, masked."""
+    from repro_torch.kernels.score_docs.ref import score_clusters_ref
+    return score_clusters_ref(tids, tw, dseg, dmask, cids, seg_admit,
+                              terms.qmaps[i], scale)
+
+
 def plain_versions(name, _):
     """Stand-ins for :func:`swapped_wrappers`: each kernel's plain
     PyTorch version on the same (card) tensors."""
-    from repro_torch.kernels.plan_wave.compact import compact_front_plain
-    from repro_torch.kernels.score_docs.ref import score_docs_ref
     from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
     return {"segment_bound_gemm": segment_bound_gemm_ref,
             "score_admitted": score_admitted_plain,
-            "score_docs": score_docs_ref,
-            "compact_front": compact_front_plain}[name]
+            "score_clusters": score_clusters_plain,
+            "plan_wave_kernel": plan_wave_plain}[name]
+
+
+def _plan_call(args) -> tuple[tuple, dict]:
+    """``plan_wave``'s (positional, keyword) arguments from a captured call
+    of the planner kernel's wrapper."""
+    (cids, live, admit, seg_admit, block_q, dseg, dmask, block_d, soff, su,
+     scope) = args
+    return ((cids, live, admit, seg_admit, block_q, dseg, dmask),
+            dict(block_d=block_d, seg_offsets=soff, sorted_upto=su,
+                 union_scope=scope))
 
 
 def capture_inputs(engine, queries) -> dict:
     """Warm-up run of one 64-batch and one 2-batch that records the inputs
     the main path hands each kernel wrapper (first call of K2 and K4, K1's
-    call at each batch size; the six K3 calls of the first wave). Not
-    counted."""
-    seen: dict = {"compact_front": [], "segment_bound_gemm": {}}
+    call at each batch size; every wave's planner call). Not counted."""
+    seen: dict = {"plan_wave_kernel": [], "segment_bound_gemm": {}}
 
     def recorder(name, fn):
         def rec(*args, **kw):
-            if name == "compact_front":
-                if len(seen[name]) < 6:
-                    seen[name].append(args[0].clone())
+            if name == "plan_wave_kernel":
+                seen[name].append(args)
             elif name == "segment_bound_gemm":
                 seen[name].setdefault(args[1].n_queries, args)
             elif name not in seen:
@@ -432,7 +475,8 @@ def capture_inputs(engine, queries) -> dict:
 def phase_serve(geo, index, queries, torch):
     from repro_torch.core.search import (SearchConfig, brute_force_topk,
                                          retrieve)
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (MAIN_PATH, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.serving.engine import RetrievalEngine
 
     cfg = SearchConfig(k=geo.k, mu=geo.mu, eta=geo.eta, method="asc",
@@ -482,7 +526,7 @@ def phase_serve(geo, index, queries, torch):
         if not (bool(torch.isfinite(out.scores).all())
                 and bool((ids >= 0).all()) and ids.shape[1] == geo.k):
             raise AssertionError("serve: non-finite scores or missing ids")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched on the main "
                              f"path: {missing}")
@@ -547,13 +591,14 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
     from repro_torch.kernels.score_cluster_batch.ref import NEG
-    from repro_torch.kernels.score_docs.ops import score_docs
+    from repro_torch.kernels.score_docs.ops import score_clusters, score_docs
     from repro_torch.kernels.score_docs.ref import score_docs_ref
     from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
     from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
-    from repro_torch.core.plan import plan_wave
+    from repro_torch.core.plan import PLAN_FIELDS, plan_wave
     from repro_torch.core.types import QueryBatch, take_rows, widen_tids
     from repro_torch.kernels.query_terms import query_terms
+    from repro_torch.tools.plan_cases import plan_cases
 
     rows = []
 
@@ -710,8 +755,25 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                    n_blocks=int(plan.n_blocks),
                    walked_docs=int(plan.walked_docs()))))
 
-    # ---- K3: the six compactions of one wave ------------------------------
-    masks = captured["compact_front"]
+    # ---- K3: the wave planner, on every wave of a 64-query batch ---------
+    waves = captured["plan_wave_kernel"]
+    edge = [(c.name, c.args(DEVICE)) for c in plan_cases()]
+    for what, (a, kw) in ([(f"wave {w}", _plan_call(args))
+                           for w, args in enumerate(waves)] + edge):
+        got = plan_wave(*a, **kw)
+        want = plan_wave(*a, **kw, _compact=compact_front_plain)
+        for f in PLAN_FIELDS:
+            x, y = getattr(got, f), getattr(want, f)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"K3 planner: {f} differs at {what}")
+    a, kw = _plan_call(waves[0])
+    # the op-by-op planner's six compactions of wave 0, and ragged rows
+    masks = []
+
+    def rec(keep):
+        masks.append(keep.clone())
+        return compact_front(keep)
+    plan_wave(*a, **kw, _compact=rec)
     for keep in masks + [torch.rand((5, 1289), device=DEVICE) < 0.3,
                          torch.zeros((3, 7), dtype=torch.bool,
                                      device=DEVICE),
@@ -719,48 +781,125 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                                     device=DEVICE)]:
         got, ref = compact_front(keep), compact_front_plain(keep)
         if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-            raise AssertionError(f"K3: compaction differs at "
+            raise AssertionError(f"compact_front differs at "
                                  f"{tuple(keep.shape)}")
-    k3_bytes = sum(k.numel() * 5 + k.numel() // k.shape[-1] * 4
-                   for k in masks)
-    b_ms, b_by = bound(k3_bytes, sum(k.numel() for k in masks))
-    rows.append(dict(
-        name="compact_front", route="cuda",
-        source="src/repro_torch/kernels/csrc/compact_front.cu",
-        replaces="src/repro/kernels/plan_wave/compact.py:90",
-        launches=launches["compact_front"], max_abs_err=0.0,
-        ms=time_ms(lambda: [compact_front(k) for k in masks]),
-        plain_ms=time_ms(lambda: [compact_front_plain(k) for k in masks]),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=dict(calls_per_wave=len(masks),
-                   masks=[list(k.shape) for k in masks])))
+    # bound: the wave's planner inputs read once and the plan written once
+    plan = plan_wave(*a, **kw)
+    ins = [t for t in a if isinstance(t, torch.Tensor)] + [
+        kw["seg_offsets"], kw["sorted_upto"]]
+    io_bytes = (sum(t.numel() * t.element_size() for t in ins)
+                + sum(getattr(plan, f).numel()
+                      * getattr(plan, f).element_size() for f in PLANNED))
+    b_ms, b_by = bound(io_bytes, 0.0)
 
-    # ---- K4: per-query scoring --------------------------------------------
-    (dt, dw, qmap1, scale), _ = captured["score_docs"]
-    err = close(score_docs(dt, dw, qmap1, scale),
-                score_docs_ref(dt, dw, qmap1, scale), "K4")
-    rag = (take_rows(index.doc_tids, torch.tensor([3], device=DEVICE)
-                     )[0, :37], index.doc_tw[3, :37], qmap1, scale)
-    close(score_docs(*rag), score_docs_ref(*rag), "K4 ragged")
-    D = dt.numel() // dt.shape[-1]
-    T = dt.shape[-1]
-    nnz4 = float((dw != 0).sum())
-    b_ms, b_by = bound(D * T * (dt.element_size() + 1) + qmap1.numel() * 4
-                       + D * 4, 2.0 * nnz4)
-    wide = widen_tids(dt).reshape(D, T)
-    wts = dw.reshape(D, T).float()
+    def fused():
+        return plan_wave(*a, **kw)
+
+    def op_by_op():
+        return plan_wave(*a, **kw, _compact=compact_front)
+
+    def plain():
+        return plan_wave(*a, **kw, _compact=compact_front_plain)
+    rows.append(dict(
+        name="plan_wave", route="cuda",
+        source="src/repro_torch/kernels/csrc/plan_wave.cu",
+        replaces="src/repro/kernels/plan_wave/compact.py:90",
+        launches=launches["plan_wave"], max_abs_err=0.0,
+        ms=time_ms(fused), device_ms=device_ms(fused),
+        plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, timed="plan_wave on wave 0: one call, two kernels",
+        op_by_op_ms=time_ms(op_by_op), op_by_op_device_ms=device_ms(op_by_op),
+        plain_device_ms=device_ms(plain),
+        waves_checked=len(waves), edge_cases=[n for n, _ in edge],
+        shape=dict(n_q=plan.admit.shape[0], G=plan.cids.shape[0],
+                   n_seg=plan.seg_admit.shape[-1], d_pad=plan.d_pad,
+                   block_q=plan.block_q, block_d=plan.block_d,
+                   n_qb=plan.n_qb, run_slots=plan.drun_start.shape[-1],
+                   n_tiles=int(plan.n_tiles), io_bytes=io_bytes),
+        compact_front=dict(
+            source="src/repro_torch/kernels/csrc/compact_front.cu",
+            launches=launches["compact_front"],
+            ms=time_ms(lambda: [compact_front(k) for k in masks]),
+            plain_ms=time_ms(lambda: [compact_front_plain(k)
+                                      for k in masks]),
+            calls_per_wave=len(masks),
+            masks=[list(k.shape) for k in masks])))
+
+    # ---- K4: per-query scoring by cluster id, the admission fused -------
+    (dt, dw, dseg4, dmask4, cids4, seg4, terms4, i4, scale4), _ = \
+        captured["score_clusters"]
+
+    def k4():
+        return score_clusters(dt, dw, dseg4, dmask4, cids4, seg4, terms4,
+                              i4, scale4)
+
+    def k4_plain():
+        return score_clusters_plain(dt, dw, dseg4, dmask4, cids4, seg4,
+                                    terms4, i4, scale4)
+    qmap1 = terms4.qmaps[i4]
+    cl4 = cids4.long()
+
+    def gathered():
+        return take_rows(dt, cl4), dw[cl4]
+
+    def k4_old():
+        # the sequence K4 replaced: gather the tiles, the flat kernel on a
+        # dense map, then the admission mask
+        tiles, wts = gathered()
+        scores = score_docs(tiles, wts, qmap1, scale4)
+        ok = (seg4[:, :1] if seg4.shape[1] == 1
+              else torch.gather(seg4, 1, dseg4[cl4].long()))
+        return torch.where(dmask4[cl4] & ok, scores, NEG)
+
+    want = k4_plain()
+    neg4 = want == NEG
+    err = close(k4(), want, "K4", neg=neg4)
+    close(k4_old(), want, "K4 (gather + flat kernel)", neg=neg4)
+    # ragged: the collapsed table, int32 ids, one cluster admitting nothing
+    r_cids = cids4[:5].to(torch.int32)
+    r_seg = torch.rand((5, 1), device=DEVICE) < 0.7
+    r_seg[1] = False
+    r_args = (dt, dw, dseg4, dmask4, r_cids, r_seg, terms4, i4, scale4)
+    r_want = score_clusters_plain(*r_args)
+    close(score_clusters(*r_args), r_want, "K4 ragged", neg=r_want == NEG)
+    tiles, wts = gathered()
+    flat_err = close(score_docs(tiles, wts, qmap1, scale4),
+                     score_docs_ref(tiles, wts, qmap1, scale4), "K4 flat")
+    G4, D4 = neg4.shape
+    T4 = dt.shape[-1]
+    n_adm = int((~neg4).sum())
+    # work this query's data needs: each admitted doc row read once, one
+    # FMA per admitted doc term the query holds, the liveness, segments
+    # and output of every slot once
+    adm_t = widen_tids(tiles)[~neg4]
+    hits = float(((qmap1[adm_t] != 0) & (wts[~neg4] != 0)).sum())
+    b_ms, b_by = bound(n_adm * T4 * (dt.element_size() + 1)
+                       + G4 * D4 * (1 + 4 + 4) + seg4.numel()
+                       + terms4.q_pad * 8, 2.0 * hits)
+    wide = widen_tids(tiles).reshape(-1, T4)
+    wts_f = wts.reshape(-1, T4).float()
     emb = qmap1[:, None]
     rows.append(dict(
-        name="score_docs", route="cuda",
+        name="score_clusters", route="cuda",
         source="src/repro_torch/kernels/csrc/score_docs.cu",
         replaces="src/repro/kernels/score_docs/score_docs.py:40",
-        launches=launches["score_docs"], max_abs_err=err,
-        ms=time_ms(lambda: score_docs(dt, dw, qmap1, scale)),
-        plain_ms=time_ms(lambda: score_docs_ref(dt, dw, qmap1, scale)),
+        launches=launches["score_clusters"], max_abs_err=err,
+        ms=time_ms(k4), device_ms=device_ms(k4), plain_ms=time_ms(k4_plain),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
-            wide, emb, per_sample_weights=wts, mode="sum") * scale),
-        shape=dict(D=D, T=T, vocab_plus_1=qmap1.numel())))
+            wide, emb, per_sample_weights=wts_f, mode="sum") * scale4),
+        library="embedding_bag over the gathered tiles, unmasked",
+        old_sequence_ms=time_ms(k4_old),
+        old_sequence_device_ms=device_ms(k4_old),
+        shape=dict(G=G4, d_pad=D4, t_pad=T4, admitted_docs=n_adm,
+                   hit_terms=int(hits), q_terms=int(terms4.count[i4])),
+        score_docs=dict(
+            launches=launches["score_docs"], max_abs_err=flat_err,
+            ms=time_ms(lambda: score_docs(tiles, wts, qmap1, scale4)),
+            device_ms=device_ms(lambda: score_docs(tiles, wts, qmap1,
+                                                   scale4)),
+            plain_ms=time_ms(lambda: score_docs_ref(tiles, wts, qmap1,
+                                                    scale4)))))
     return rows
 
 

@@ -18,10 +18,15 @@ admission decisions of a wave into the compact plan the executor
     doc blocking as a compacted doc sub-tile queue (``dblock``);
   * queue tails are clamped (the last live entry repeats).
 
-Every compaction is one call of ``_compact`` — six per wave. The default
-is the dispatching ``compact_front``: on the card each call is one launch
-of the K3 kernel and the plan never leaves the device; on the CPU it is
-the plain scan. Integer outputs are bit-identical to the reference.
+On the card (CUDA tensors, no ``_compact`` injected) one call of
+``kernels/plan_wave/ops.py::plan_wave_kernel`` builds the whole plan
+(K3, ``csrc/plan_wave.cu``), and the plan never leaves the device. The
+op-by-op code below is its plain version: it runs on the CPU, and on
+either device when a ``_compact`` backend is injected, its six
+compactions then being calls of that backend (the parity tests and
+``chip_smoke.py`` swap it; ``compact_front`` is the one-compaction K3
+dispatch). Integer and boolean outputs are bit-identical to the
+reference on every path.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.plan_wave.compact import compact_front
+from repro_torch.kernels.plan_wave.ops import plan_wave_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,15 +187,24 @@ def plan_wave(cids: torch.Tensor, live: torch.Tensor, admit: torch.Tensor,
     sorted_upto (G,) the segment-major layout metadata (None: pure
     mask-RLE). ``union_scope`` keys the doc queues by query block
     (``"qblock"``) or by the whole batch (``"batch"``). ``_compact``
-    injects the compaction backend (the parity tests swap it); None is the
-    dispatching :func:`compact_front`, looked up at call time."""
-    _compact = _compact or compact_front
+    injects the compaction backend of the op-by-op path (the parity tests
+    swap it); None is the planner kernel for CUDA tensors and the
+    dispatching :func:`compact_front` (its plain scan) for CPU ones, both
+    looked up at call time."""
     if union_scope not in ("qblock", "batch"):
         raise ValueError(f"unknown union_scope {union_scope!r}")
     n_q, G = admit.shape
     dp = doc_mask.shape[-1]
     n_seg_eff = seg_admit.shape[-1]
     block_d = resolve_block_d(dp, block_d)
+    if _compact is None and admit.device.type != "cpu":
+        return WavePlan(
+            cids=cids, live=live, admit=admit, seg_admit=seg_admit,
+            **plan_wave_kernel(cids, live, admit, seg_admit, block_q,
+                               doc_seg_mod, doc_mask, block_d, seg_offsets,
+                               sorted_upto, union_scope),
+            block_q=block_q, block_d=block_d)
+    _compact = _compact or compact_front
     n_qb = -(-n_q // block_q)
     pad = n_qb * block_q - n_q
     if pad:

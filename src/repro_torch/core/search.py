@@ -44,12 +44,12 @@ import torch
 
 from repro_torch.core.bounds import cluster_bounds
 from repro_torch.core.plan import WavePlan, plan_wave, resolve_block_d
-from repro_torch.core.types import ClusterIndex, QueryBatch, TopK, take_rows
+from repro_torch.core.types import ClusterIndex, QueryBatch, TopK
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels.query_terms import QueryTerms, query_terms
 from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import NEG, SCORE_CHUNK
-from repro_torch.kernels.score_docs.ops import score_docs
+from repro_torch.kernels.score_docs.ops import score_clusters
 from repro_torch.kernels.score_docs.ref import score_docs_ref
 
 # `engine="auto"` routes tiny batches to the per-query engine
@@ -193,14 +193,6 @@ def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _score_docs(index: ClusterIndex, cluster_ids: torch.Tensor,
-                qmap: torch.Tensor) -> torch.Tensor:
-    """(G, d_pad) scores for the given clusters (one query)."""
-    cids = cluster_ids.long()
-    tids = take_rows(index.doc_tids, cids)                  # (G, dp, tp)
-    return score_docs(tids, index.doc_tw[cids], qmap, index.scale)
-
-
 def _int32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
@@ -258,13 +250,14 @@ def _resolve_mu_eta(cfg: SearchConfig, n_q: int, mu_eta,
     return me[:, 0], me[:, 1]
 
 
-def _search_one_query(index: ClusterIndex, qmap: torch.Tensor,
+def _search_one_query(index: ClusterIndex, terms: QueryTerms, i: int,
                       seg_b: torch.Tensor, max_s: torch.Tensor,
                       avg_s: torch.Tensor, order_key: torch.Tensor,
                       cfg: SearchConfig, budget: torch.Tensor,
                       mu: torch.Tensor, eta: torch.Tensor,
                       stats: dict) -> tuple:
-    """The grouped-visitation loop for a single query (reference engine).
+    """The grouped-visitation loop for query ``i`` of ``terms`` (reference
+    engine).
 
     seg_b (m, n_seg_eff), max_s/avg_s/order_key (m,), mu/eta () float32.
     Returns (ids, scores, counters...)."""
@@ -272,7 +265,6 @@ def _search_one_query(index: ClusterIndex, qmap: torch.Tensor,
     dev = order_key.device
     n_groups = -(-m // G)
     m_padded = n_groups * G
-    n_seg_eff = seg_b.shape[1]
     asc = cfg.method == "asc"
 
     order = torch.argsort(-order_key, stable=True)
@@ -312,20 +304,17 @@ def _search_one_query(index: ClusterIndex, qmap: torch.Tensor,
             seg_admit = torch.ones_like(b, dtype=torch.bool)
         seg_admit = seg_admit & admit[:, None]
 
-        scores = _score_docs(index, cids, qmap)               # (G, d_pad)
-        if n_seg_eff == 1:
-            seg_ok = seg_admit[:, :1]
-        else:
-            seg_ok = torch.gather(seg_admit, 1, index.doc_seg_mod[cids].long())
-        doc_admit = index.doc_mask[cids] & seg_ok
-        scores = torch.where(doc_admit, scores, NEG)
+        # (G, d_pad), NEG where the doc is dead or its segment not admitted
+        scores = score_clusters(index.doc_tids, index.doc_tw,
+                                index.doc_seg_mod, index.doc_mask, cids,
+                                seg_admit, terms, i, index.scale)
 
         cand_scores = torch.cat([top_scores, scores.reshape(-1)])
         cand_ids = torch.cat([top_ids, index.doc_ids[cids].reshape(-1)])
         top_scores, pos_k = topk_stable(cand_scores, k)
         top_ids = cand_ids[pos_k]
 
-        n_docs = n_docs + doc_admit.sum(dtype=torch.int32)
+        n_docs = n_docs + (scores > NEG).sum(dtype=torch.int32)
         n_clusters = n_clusters + admit.sum(dtype=torch.int32)
         n_segments = n_segments + seg_admit.sum(dtype=torch.int32)
 
@@ -548,7 +537,7 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
     n_tiles_walked, n_docs_walked, n_bounded, n_walked_super,
     n_pruned_super), each leading n_q. The queries' term layout
     (kernels/query_terms.py) is built once and shared by the bound pass
-    and scoring; the per-query engine reads its dense maps."""
+    and scoring."""
     if stats is None:
         stats = {}
     stats.update(waves=0, host_syncs=0)
@@ -570,8 +559,7 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                              device=dev),
                   torch.zeros((nq,), dtype=torch.int32, device=dev))
     if engine == "per_query":
-        qmaps = terms.qmaps                                   # (n_q, V+1)
-        rows = [_search_one_query(index, qmaps[i], seg_b[i], max_s[i],
+        rows = [_search_one_query(index, terms, i, seg_b[i], max_s[i],
                                   avg_s[i], order_key[i], cfg, budget,
                                   mu[i], eta[i], stats)
                 for i in range(nq)]

@@ -64,6 +64,17 @@ _SIGNATURES = {
                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # tids, tid_bytes, tw, qmap, scale, out, D, T, V + 1, stream
     "score_docs": [_P, _I, _P, _P, _P, _P, _I64, _I, _I, _P],
+    # tids, tid_bytes, tw, doc_seg_mod, doc_mask, cids, cid_bytes,
+    # seg_admit, n_seg, query tids, query tw, query count, scale, out, G,
+    # d_pad, t_pad, bitmap words, q_pad, stream
+    "score_clusters": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _P],
+    # cids, live, admit, seg_admit, doc_seg_mod, doc_mask, seg_offsets,
+    # its row width, sorted_upto, scratch, then the outputs tile_cids,
+    # tile_pos, n_tiles, qblock, n_qblock, n_blocks, drun_start, drun_len,
+    # n_drun, dblock, n_dblock, dmask_union; n_q, G, n_seg, d_pad,
+    # block_q, n_qb, block_d, n_db, run slots, batch scope, stream
+    "plan_wave": [_P] * 7 + [_I] + [_P] * 14 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,38 @@ constexpr float kNeg = -FLT_MAX;
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// ---- block-wide exclusive scan ------------------------------------------
+// Every thread of a block of kThreads (a multiple of 32, at most 1024)
+// calls it with its own count; it returns the sum of the counts of the
+// threads before it and sets *total to the block's sum. warp_incl holds
+// kThreads / 32 ints of shared memory; it is free again after the next
+// __syncthreads() that follows the call.
+template <int kThreads>
+__device__ inline int block_exclusive_scan(int x, int* warp_incl, int* total) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;  // inclusive scan within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_incl[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {  // inclusive scan of the warp totals
+    int w = lane < kWarps ? warp_incl[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += y;
+    }
+    if (lane < kWarps) warp_incl[lane] = w;
+  }
+  __syncthreads();
+  *total = warp_incl[kWarps - 1];
+  return incl - x + (warp > 0 ? warp_incl[warp - 1] : 0);
+}
+
 // Raise a kernel's dynamic shared-memory limit when it needs more than the
 // default 48 KB (the attribute is per function; setting it again is free).
 template <typename Kernel>

@@ -15,16 +15,19 @@
 // triangular ones matrix and the scatter as an O(n^2) broadcast-compare,
 // because Mosaic has neither a scan nor a scatter into VMEM.
 //
-// What bounds it on the H100: nothing of the card's. Rows are few (G,
-// G * n_qb) and short (up to d_pad), a few KB in and out per call, so
-// its time is the launch itself. The planner makes six calls a wave, and
-// the design keeps each a single launch that needs no host round trip.
+// What bounds it on the H100: nothing of the card's. Rows are few and
+// short, a few KB in and out per call, so its time is the launch itself.
+// It is the entry point for one compaction; the batched engine's planner
+// no longer calls it (plan_wave.cu builds a whole wave's queues in one
+// call), but plan_wave(_compact=compact_front) still runs the op-by-op
+// planner through it.
 //
 // Design: one block per row. Each thread counts the Trues of its own
-// contiguous chunk, a block-wide exclusive scan (warp shuffles, then one
-// warp over the warp totals) gives each chunk its first rank, each thread
-// scatters its kept positions to idx[b, rank], and the tail is filled
-// with the last True position (a shared-memory atomicMax).
+// contiguous chunk, a block-wide exclusive scan (common.cuh: warp
+// shuffles, then one warp over the warp totals) gives each chunk its
+// first rank, each thread scatters its kept positions to idx[b, rank],
+// and the tail is filled with the last True position (a shared-memory
+// atomicMax).
 #include "common.cuh"
 
 namespace {
@@ -40,7 +43,7 @@ compact_front_kernel(const uint8_t* __restrict__ keep, int* __restrict__ idx,
   const int row = blockIdx.x;
   const uint8_t* k = keep + static_cast<size_t>(row) * n;
   int* o = idx + static_cast<size_t>(row) * n;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int chunk = (n + kThreads - 1) / kThreads;
   const int beg = min(tid * chunk, n), end = min(beg + chunk, n);
 
@@ -51,27 +54,9 @@ compact_front_kernel(const uint8_t* __restrict__ keep, int* __restrict__ idx,
       last = p;
     }
   }
-  int incl = local;  // inclusive scan within the warp
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  if (lane == 31) warp_incl[warp] = incl;
   if (tid == 0) last_true = -1;
-  __syncthreads();
-  if (warp == 0) {  // inclusive scan of the warp totals
-    int w = lane < kWarps ? warp_incl[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += y;
-    }
-    if (lane < kWarps) warp_incl[lane] = w;
-  }
-  __syncthreads();
-  const int total = warp_incl[kWarps - 1];
-  int rank = incl - local + (warp > 0 ? warp_incl[warp - 1] : 0);
+  int total;
+  int rank = block_exclusive_scan<kThreads>(local, warp_incl, &total);
   if (last >= 0) atomicMax(&last_true, last);
   for (int p = beg; p < end; ++p) {
     if (k[p]) o[rank++] = p;

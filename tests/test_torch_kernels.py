@@ -10,11 +10,14 @@ against the JAX reference, on the same numpy inputs:
     exactly;
   * K1 segment bounds: rtol 1e-5 (fp32 sums in another order);
   * K3 compaction: bit-exact, empty and full rows included;
-  * K2 executor and K4 per-query scoring: rtol 1e-5 on admitted scores,
-    NEG positions exact.
+  * K2 executor and K4 per-query scoring (by cluster id with the
+    admission applied, and on a flat batch): rtol 1e-5 on admitted
+    scores, NEG positions exact.
 
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
-card; they skip where there is none. This file must also collect on the
+card (the wave planner, K3, on ``repro_torch.tools.plan_cases``; its plain
+version is ``plan_wave``'s op-by-op code, whose CPU parity is
+tests/test_torch_plan.py's); they skip where there is none. This file must also collect on the
 machine with the card, which has no JAX: the reference is imported inside
 the tests that use it. Run the card tests with
 ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -28,10 +31,10 @@ import torch
 
 from repro_torch.core.index import build_index
 from repro_torch.core.search import SearchConfig, retrieve
-from repro_torch.core.plan import plan_wave
+from repro_torch.core.plan import PLAN_FIELDS, plan_wave
 from repro_torch.core.types import TOPK_FIELDS, QueryBatch, take_rows
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import MAIN_PATH, launch_counts
 from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                    compact_front_plain)
 from repro_torch.kernels.plan_wave.ref import compact_front_ref
@@ -41,8 +44,9 @@ from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import (NEG,
                                                          score_admitted_ref,
                                                          score_runs_ref)
-from repro_torch.kernels.score_docs.ops import score_docs
-from repro_torch.kernels.score_docs.ref import score_docs_ref
+from repro_torch.kernels.score_docs.ops import score_clusters, score_docs
+from repro_torch.kernels.score_docs.ref import (score_clusters_ref,
+                                                score_docs_ref)
 from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
 from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
 
@@ -399,6 +403,52 @@ def test_score_docs_plain_matches_pallas(shape, vocab):
                                    atol=1e-6)
 
 
+def _cluster_case(case, n_seg, m, rng):
+    """(cids (8,), seg_admit (8, n_seg)) of one K4 case: segment
+    admission at random, one cluster admitting nothing, and the collapsed
+    (n_seg == 1) table for ``"collapsed"``."""
+    cids = rng.permutation(m)[:8]
+    seg_admit = rng.random((8, 1 if case == "collapsed" else n_seg)) < 0.6
+    seg_admit[2] = False
+    return cids, seg_admit
+
+
+@pytest.mark.parametrize("case", ["golden", "collapsed", "tombstoned"])
+def test_score_clusters_plain_matches_pallas(case):
+    """K4 as the per-query engine calls it (clusters by id, the admission
+    applied) equals the JAX package's score_docs kernel (interpret mode)
+    on the gathered tiles and the query's dense map, masked the same way,
+    for each query of the golden world."""
+    import jax.numpy as jnp
+    from repro.kernels.score_docs import ops as jops
+    jidx, jq, idx, q = _jax_world()
+    rng = np.random.default_rng(["golden", "collapsed",
+                                 "tombstoned"].index(case))
+    cids, seg_admit = _cluster_case(case, idx.n_seg, idx.m, rng)
+    doc_mask = np.asarray(jidx.doc_mask).copy()
+    if case == "tombstoned":
+        doc_mask &= rng.random(doc_mask.shape) >= 0.3
+    seg = np.asarray(jidx.doc_seg_mod)[cids]
+    ok = (seg_admit[:, :1] if seg_admit.shape[1] == 1
+          else np.take_along_axis(seg_admit, seg, 1))
+    admitted = doc_mask[cids] & ok
+    tiles = jnp.asarray(np.asarray(jidx.doc_tids).astype(np.int32)[cids])
+    weights = jnp.asarray(np.asarray(jidx.doc_tw)[cids])
+    qmaps = jq.dense_map()
+    terms = query_terms(q)
+    for i in range(q.n_queries):
+        want = np.where(admitted, np.asarray(jops.score_docs(
+            tiles, weights, qmaps[i], jidx.scale)), NEG)
+        got = score_clusters(idx.doc_tids, idx.doc_tw, idx.doc_seg_mod,
+                             _t(doc_mask), torch.from_numpy(cids),
+                             _t(seg_admit), terms, i, idx.scale).numpy()
+        neg = want == NEG
+        np.testing.assert_array_equal(got == NEG, neg)
+        assert neg.any() and not neg.all()
+        np.testing.assert_allclose(got[~neg], want[~neg], rtol=RTOL,
+                                   atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -521,6 +571,79 @@ def test_score_docs_kernel_on_card(cuda):
                                    atol=1e-6)
 
 
+@pytest.mark.gpu
+def test_plan_kernel_on_card(cuda):
+    """The planner kernel (plan_wave on CUDA tensors, nothing injected)
+    equals the plain op-by-op planner field for field on every edge case,
+    in one call of two launches and no compact_front launch; int64 cids
+    raise."""
+    from repro_torch.tools.plan_cases import plan_cases
+    for case in plan_cases():
+        args, kw = case.args(cuda)
+        before = launch_counts()
+        got = plan_wave(*args, **kw)
+        after = launch_counts()
+        assert after["plan_wave"] == before["plan_wave"] + 2, case.name
+        assert after["compact_front"] == before["compact_front"], case.name
+        want = plan_wave(*args, **kw, _compact=compact_front_plain)
+        for f in PLAN_FIELDS:
+            g, w = getattr(got, f), getattr(want, f)
+            assert g.dtype == w.dtype and torch.equal(g, w), (case.name, f)
+    with pytest.raises(TypeError, match="cids"):
+        plan_wave(args[0].long(), *args[1:], **kw)
+
+
+@pytest.mark.gpu
+def test_score_clusters_kernel_on_card(cuda):
+    """K4 by cluster id against its plain version: both segment tables,
+    tombstoned docs, int32 and int64 cluster ids, on a small world and at
+    the MS MARCO widths (V = 30522, 2560 x 128 tiles, q_pad 32)."""
+    rng = np.random.default_rng(3)
+    index, queries = _card_world(cuda)
+    m, dp, tp, V = 12, 2560, 128, 30522
+    tids = rng.integers(0, V + 1, (m, dp, tp))
+    tw = rng.integers(0, 256, (m, dp, tp)).astype(np.uint8)
+    tw[tids == V] = 0
+    qt = np.stack([rng.choice(np.unique(tids[:, :64])[:-1], 32,
+                              replace=False) for _ in range(3)])
+    wide = QueryBatch(tids=_t(qt.astype(np.int32)),
+                      tw=_t(rng.random((3, 32)).astype(np.float32)),
+                      mask=_t(np.ones((3, 32), bool)), vocab=V).to(cuda)
+    arrays = dict(doc_tids=_t(tids.astype(np.uint16)).to(cuda),
+                  doc_tw=_t(tw).to(cuda),
+                  doc_seg_mod=_t(rng.integers(0, 8, (m, dp)).astype(
+                      np.int32)).to(cuda),
+                  doc_mask=_t(rng.random((m, dp)) < 0.9).to(cuda),
+                  n_seg=8, m=m, scale=torch.tensor(np.float32(0.021),
+                                                   device=cuda))
+    worlds = [(dict(doc_tids=index.doc_tids, doc_tw=index.doc_tw,
+                    doc_seg_mod=index.doc_seg_mod,
+                    doc_mask=index.doc_mask & _t(
+                        rng.random(tuple(index.doc_mask.shape)) >= 0.3
+                    ).to(cuda),
+                    n_seg=index.n_seg, m=index.m, scale=index.scale),
+               queries),
+              (arrays, wide)]
+    for w, qs in worlds:
+        terms = query_terms(qs)
+        for case in ("segments", "collapsed"):
+            cids, seg_admit = _cluster_case(case, w["n_seg"], w["m"], rng)
+            for cid_dtype in (torch.int64, torch.int32):
+                args = (w["doc_tids"], w["doc_tw"], w["doc_seg_mod"],
+                        w["doc_mask"], _t(cids).to(cuda, cid_dtype),
+                        _t(seg_admit).to(cuda))
+                for i in range(min(qs.n_queries, 3)):
+                    before = launch_counts()["score_clusters"]
+                    got = score_clusters(*args, terms, i, w["scale"])
+                    assert launch_counts()["score_clusters"] == before + 1
+                    want = score_clusters_ref(*args, terms.qmaps[i],
+                                              w["scale"])
+                    neg = want == NEG
+                    assert torch.equal(got == NEG, neg)
+                    torch.testing.assert_close(got[~neg], want[~neg],
+                                               rtol=RTOL, atol=1e-6)
+
+
 # the golden world's slice configs (tests/test_golden_regression.py)
 GOLDEN_CONFIGS = [
     dict(mu=0.8, eta=1.0, method="asc", engine="batched", block_q=4,
@@ -561,7 +684,7 @@ def test_card_retrieval_equals_cpu_path(cuda):
                 else:
                     assert torch.equal(g, w), (conf, impl, f)
     after = launch_counts()
-    assert all(after[k] > before[k] for k in after)
+    assert all(after[k] > before[k] for k in MAIN_PATH)
 
 
 def test_k2_phase_cuts_find_their_loops():

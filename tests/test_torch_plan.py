@@ -6,7 +6,10 @@ arrival order, and a churned index with a dirty unsorted tail (built with
 ``repro.lifecycle`` and carried across with ``repro_torch.convert``). The
 port's ``plan_wave`` must reproduce every integer and boolean WavePlan
 field bit for bit, with each compaction backend, both union scopes and
-whole-tile as well as sub-tiled doc blocking. Modelled on
+whole-tile as well as sub-tiled doc blocking. The planner's edge cases
+(``repro_torch.tools.plan_cases``, the same waves the ``gpu`` test and
+``chip_smoke.py`` give the planner kernel) are held against the JAX
+planner running the Pallas compaction in interpret mode. Modelled on
 tests/test_plan_wave.py.
 """
 
@@ -29,6 +32,7 @@ from repro_torch.core.types import INDEX_FIELDS
 from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                    compact_front_plain)
 from repro_torch.kernels.plan_wave.ref import compact_front_ref
+from repro_torch.tools.plan_cases import plan_cases
 from test_plan_wave import _index
 
 _CACHE: dict = {}
@@ -96,6 +100,25 @@ def test_wave_plan_bit_exact(layout, mu, eta, budget):
                     assert_plan_equal(jp, tp, f"{layout} wave {wave} "
                                       f"block_d {block_d} {scope} "
                                       f"{backend}")
+
+
+@pytest.mark.parametrize("case", plan_cases(), ids=lambda c: c.name)
+def test_plan_edge_cases_match_pallas_planner(case):
+    """Union scopes, the collapsed table, no layout metadata, a dirty
+    tail, n_q = 37 at block_q 16, a partial and an empty wave, whole-tile
+    blocking, dead tile and query-block slots, more than 32 positions and
+    query blocks: every field bit-exact with the reference planner on the
+    Pallas compaction (interpret mode)."""
+    from repro.kernels.plan_wave.compact import compact_front_pallas
+    j = {k: None if v is None else jnp.asarray(v)
+         for k, v in case.arrays.items()}
+    jp = jplan.plan_wave(
+        j["cids"], j["live"], j["admit"], j["seg_admit"], case.block_q,
+        j["doc_seg_mod"], j["doc_mask"], block_d=case.block_d,
+        seg_offsets=j["seg_offsets"], sorted_upto=j["sorted_upto"],
+        union_scope=case.union_scope, _compact=compact_front_pallas)
+    args, kw = case.args("cpu")
+    assert_plan_equal(jp, tplan.plan_wave(*args, **kw), case.name)
 
 
 def test_plan_without_layout_metadata_and_helpers():
