@@ -9,8 +9,9 @@ nonzero and prints no result):
   1. build   — compile the five CUDA sources of ``kernels/csrc`` and
                print the build seconds and the card's name and power limit;
   2. golden  — rebuild the golden world of tests/test_golden_regression.py
-               with the port's own numpy builders and run its six slice
-               configs on the card against tests/golden/golden_topk.json;
+               with the port's own numpy builders and run its seven
+               configs (two of them the superblock walk) and brute force
+               on the card against tests/golden/golden_topk.json;
   3. serve   — the main path at the MS MARCO widths of
                ``configs/asc_splade.py`` (V = 30522, t_pad = 128,
                q_pad = 32, n_seg = 8, d_pad = 2560, group_size = 32, k = 10,
@@ -22,7 +23,21 @@ nonzero and prints no result):
                kernel of ``kernels.MAIN_PATH`` must have launched. Then the
                kernel path is held against the plain path on the card (16
                queries) and safe mode against brute force (8 queries);
-  4. kernels — each kernel against its plain version on the card at the
+  4. superblock — the two-level walk (superblocks=True) in the same
+               world (S = 23 superblocks of cap = 23 clusters), four
+               64-query batches served with the counts zeroed before and
+               read after (K1 once a batch at level 0 and once a walked
+               superblock, the planner and K2 once a walked wave); every
+               TopK field against the on-card plain path, safe mode against
+               brute force (16 queries); the level-0 funnel, waves, syncs
+               and batch ms;
+  5. pipelined — engine="pipelined" (fuse_waves="auto") over the same
+               four batches, counts zeroed before and read after; every
+               TopK field bit for bit equal to engine="batched" and the
+               wave summaries equal to the batched engine's recorded plans;
+               batch ms of both engines in turns, their launch counts and
+               host stalls, and planner_executor_split for both routes;
+  6. kernels — each kernel against its plain version on the card at the
                inputs the main path gave it (captured in a warm-up run
                that is not counted) and at ragged shapes, with times: K1
                at both batch sizes the main path gives it (64 and 2), K2
@@ -34,17 +49,21 @@ nonzero and prints no result):
                the plain planner), with ``compact_front`` still checked on
                its own; K4 by cluster id against its plain version and
                timed against the gather + flat ``score_docs`` + mask
-               sequence it replaced.
+               sequence it replaced. K1 is also checked and timed at the
+               level-0 shape (207 rows), K2 and the planner at the
+               superblock wave (G = 23; every superblock wave of a batch
+               for the planner).
 
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
-phase traces one 64-query batch with torch.profiler (device time, busy
-share, top kernels).
+phase traces one 64-query batch of the serve phase's engine and one of
+the pipelined engine with torch.profiler (device time, busy share, top
+kernels).
 """
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -222,6 +241,27 @@ def check_same(a, b, what: str) -> None:
                                  f"{x.tolist()} vs {y.tolist()}")
 
 
+def check_fields(a, b, what: str) -> None:
+    """All 11 TopK fields: ids and counters exactly, scores to RTOL."""
+    import torch
+    from repro_torch.core.types import TOPK_FIELDS
+    for f in TOPK_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        same = (torch.allclose(x, y, rtol=RTOL, atol=ATOL) if f == "scores"
+                else torch.equal(x, y))
+        if not same:
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def check_identical(a, b, what: str) -> None:
+    """All 11 TopK fields bit for bit."""
+    import torch
+    from repro_torch.core.types import TOPK_FIELDS
+    for f in TOPK_FIELDS:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -307,6 +347,11 @@ GOLDEN_CONFIGS = {
     "batched_budget": dict(k=10, mu=1.0, eta=1.0, method="anytime",
                            engine="batched", cluster_budget=4, block_q=4,
                            block_d=8),
+    "superblock_asc_safe": dict(k=10, mu=1.0, eta=1.0, method="asc",
+                                engine="batched", superblocks=True,
+                                block_q=4, block_d=8),
+    "superblock_approx": dict(k=10, mu=0.8, eta=1.0, method="asc",
+                              engine="batched", superblocks=True, block_q=4),
 }
 
 
@@ -368,77 +413,6 @@ def _slice(queries, lo, hi):
                       mask=queries.mask[lo:hi], vocab=queries.vocab)
 
 
-@contextlib.contextmanager
-def swapped_wrappers(make):
-    """Replace the four kernel wrappers where the main path looks them up
-    (``make(name, wrapper)`` gives the stand-in); restore them on exit."""
-    import repro_torch.core.bounds as bounds_mod
-    import repro_torch.core.plan as plan_mod
-    import repro_torch.core.search as search_mod
-
-    sites = [(bounds_mod, "segment_bound_gemm"),
-             (search_mod, "score_admitted"), (search_mod, "score_clusters"),
-             (plan_mod, "plan_wave_kernel")]
-    originals = [(mod, name, getattr(mod, name)) for mod, name in sites]
-    try:
-        for mod, name, fn in originals:
-            setattr(mod, name, make(name, fn))
-        yield
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-
-
-def score_admitted_plain(tids, tw, dseg, dmask, terms, plan, scale, **_):
-    """K2's plain version over the wave's gathered tiles and the batch's
-    dense maps, called as the wrapper is (full index arrays and the term
-    layout; block_v/impl do not change values)."""
-    from repro_torch.core.types import take_rows
-    from repro_torch.kernels.score_cluster_batch.ref import score_admitted_ref
-    cl = plan.cids.long()
-    return score_admitted_ref(take_rows(tids, cl), tw[cl], dseg, dmask,
-                              terms.qmaps, plan, scale)
-
-
-def plan_wave_plain(cids, live, admit, seg_admit, block_q, doc_seg_mod,
-                    doc_mask, block_d, seg_offsets, sorted_upto,
-                    union_scope):
-    """The planner kernel's plain version, called as the kernel's wrapper
-    is: the op-by-op planner on the plain compaction, its queue fields."""
-    from repro_torch.core.plan import plan_wave
-    from repro_torch.kernels.plan_wave.compact import compact_front_plain
-    plan = plan_wave(cids, live, admit, seg_admit, block_q, doc_seg_mod,
-                     doc_mask, block_d=block_d, seg_offsets=seg_offsets,
-                     sorted_upto=sorted_upto, union_scope=union_scope,
-                     _compact=compact_front_plain)
-    return {f: getattr(plan, f) for f in PLANNED}
-
-
-# the WavePlan fields the planner kernel writes
-PLANNED = ("tile_cids", "tile_pos", "n_tiles", "qblock", "n_qblock",
-           "n_blocks", "drun_start", "drun_len", "n_drun", "dblock",
-           "n_dblock", "dmask_union")
-
-
-def score_clusters_plain(tids, tw, dseg, dmask, cids, seg_admit, terms, i,
-                         scale):
-    """K4's plain version, called as its wrapper is: the gathered tiles
-    against the query's dense map, masked."""
-    from repro_torch.kernels.score_docs.ref import score_clusters_ref
-    return score_clusters_ref(tids, tw, dseg, dmask, cids, seg_admit,
-                              terms.qmaps[i], scale)
-
-
-def plain_versions(name, _):
-    """Stand-ins for :func:`swapped_wrappers`: each kernel's plain
-    PyTorch version on the same (card) tensors."""
-    from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
-    return {"segment_bound_gemm": segment_bound_gemm_ref,
-            "score_admitted": score_admitted_plain,
-            "score_clusters": score_clusters_plain,
-            "plan_wave_kernel": plan_wave_plain}[name]
-
-
 def _plan_call(args) -> tuple[tuple, dict]:
     """``plan_wave``'s (positional, keyword) arguments from a captured call
     of the planner kernel's wrapper."""
@@ -466,6 +440,7 @@ def capture_inputs(engine, queries) -> dict:
             return fn(*args, **kw)
         return rec
 
+    from repro_torch.tools.plain_path import swapped_wrappers
     with swapped_wrappers(recorder):
         engine.warmup(_slice(queries, 0, 64))
         engine.warmup(_slice(queries, 64, 66))
@@ -478,6 +453,7 @@ def phase_serve(geo, index, queries, torch):
     from repro_torch.kernels import (MAIN_PATH, launch_counts,
                                      reset_launch_counts)
     from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
 
     cfg = SearchConfig(k=geo.k, mu=geo.mu, eta=geo.eta, method="asc",
                        group_size=geo.group_size, bounds_impl="gemm",
@@ -555,10 +531,181 @@ def phase_serve(geo, index, queries, torch):
     return engine, launches, captured
 
 
+SB_BATCHES = 4          # 64-query batches each of the two engines serves
+
+
+def _walk_cfg(geo, **over):
+    from repro_torch.core.search import SearchConfig
+    return SearchConfig(**{**dict(k=geo.k, mu=geo.mu, eta=geo.eta,
+                                  method="asc", group_size=geo.group_size,
+                                  bounds_impl="gemm", engine="batched"),
+                           **over})
+
+
+def phase_superblock(geo, index, queries, torch) -> dict:
+    """The two-level walk served at the scale world: level 0 prices S
+    superblocks with K1, each walked superblock prices its members with
+    K1 again and runs one wave of K3 and K2 at G = cap. Returns the launch
+    counts and the inputs its kernels were given (a warm-up run, not
+    counted)."""
+    from repro_torch.core.search import brute_force_topk, retrieve
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    cfg = _walk_cfg(geo, superblocks=True)
+    engine = RetrievalEngine(index, cfg, device=DEVICE)
+    batches = [_slice(queries, 64 * i, 64 * (i + 1))
+               for i in range(SB_BATCHES)]
+    seen: dict = {"segment_bound_gemm": [], "plan_wave_kernel": []}
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            if name in ("segment_bound_gemm", "plan_wave_kernel"):
+                seen[name].append(args)
+            elif name not in seen:
+                seen[name] = (args, kw)
+            return fn(*args, **kw)
+        return rec
+
+    with swapped_wrappers(recorder):
+        engine.warmup(batches[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per_batch, outs = [], []
+    for q in batches:
+        t0 = time.perf_counter()
+        out = engine.search(q)
+        ms = (time.perf_counter() - t0) * 1e3
+        outs.append(out)
+        per_batch.append({
+            "ms": round(ms, 3), "waves": engine.last_run["waves"],
+            "host_syncs": engine.last_run["host_syncs"],
+            "walked_superblocks": int(out.n_walked_superblocks[0]),
+            "pruned_superblocks": int(out.n_pruned_superblocks[0]),
+            "bounded_clusters": int(out.n_bounded_clusters[0]),
+            "scored_clusters_mean": float(
+                out.n_scored_clusters.float().mean()),
+            "scored_tiles": int(out.n_scored_tiles[0]),
+            "walked_tiles": int(out.n_walked_tiles[0])})
+    launches = launch_counts()
+    for out in outs:
+        if not (bool(torch.isfinite(out.scores).all())
+                and bool((out.doc_ids >= 0).all())):
+            raise AssertionError("superblock: non-finite scores or "
+                                 "missing ids")
+    walked = sum(b["walked_superblocks"] for b in per_batch)
+    # K1 once a batch at level 0 and once a walked superblock for its
+    # members; one planner call (two kernels) and one K2 a walked wave
+    want = {"segment_bound_gemm": SB_BATCHES + walked,
+            "plan_wave": 2 * walked, "score_queue": walked,
+            "score_clusters": 0}
+    got = {name: launches[name] for name in want}
+    if got != want or walked == 0:
+        raise AssertionError(f"superblock: launches {got}, expected "
+                             f"{want}")
+
+    # every field against the on-card plain path, then safe mode against
+    # brute force
+    q = batches[0]
+    mine = retrieve(index, q, cfg, device=DEVICE)
+    with swapped_wrappers(plain_versions):
+        plain = retrieve(index, q, cfg, device=DEVICE)
+    check_fields(mine, plain, "superblock: kernel vs plain (64 queries)")
+    q16 = _slice(queries, 582, 598)
+    safe = retrieve(index, q16, dataclasses.replace(cfg, mu=1.0, eta=1.0),
+                    device=DEVICE)
+    bf = brute_force_topk(index, q16, geo.k, device=DEVICE)
+    check_topk(bf.doc_ids.cpu(), bf.scores.cpu(), safe.doc_ids.cpu(),
+               safe.scores.cpu(), "superblock: safe mode vs brute force "
+               "(16 queries)")
+    log("superblock", S=index.n_super, cap=index.super_cap, m=index.m,
+        batches=per_batch, launches=launches,
+        k1_launches={"level0": SB_BATCHES, "members": walked},
+        kernel_vs_plain=True, safe_vs_brute_force=True)
+    return {"launches": launches, "captured": seen}
+
+
+def phase_pipelined(geo, index, queries, torch) -> dict:
+    """The pipelined engine served at the scale world, held bit for bit
+    against the batched engine on the same batches, then both timed in
+    turns and split into planner and executor time."""
+    from repro_torch.core.plan import wave_summaries
+    from repro_torch.core.search import (planner_executor_split,
+                                         retrieve_pipelined,
+                                         retrieve_with_plans)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import RetrievalEngine
+
+    cfg_b = _walk_cfg(geo)
+    cfg_p = dataclasses.replace(cfg_b, engine="pipelined", fuse_waves="auto")
+    eng_p = RetrievalEngine(index, cfg_p, device=DEVICE)
+    eng_b = RetrievalEngine(index, cfg_b, device=DEVICE)
+    batches = [_slice(queries, 64 * i, 64 * (i + 1))
+               for i in range(SB_BATCHES)]
+    eng_p.warmup(batches[0])
+    eng_b.warmup(batches[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runs, outs = [], []
+    for q in batches:
+        t0 = time.perf_counter()
+        outs.append(eng_p.search(q))
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append({"ms": round(ms, 3), **{
+            key: eng_p.last_run[key] for key in (
+                "waves", "host_syncs", "plan_launches", "exec_launches",
+                "fused_waves")},
+            **{key: round(eng_p.last_run[key], 3)
+               for key in ("plan_ms", "exec_ms")}})
+    launches = launch_counts()
+    waves = sum(r["waves"] for r in runs)
+    # K1 once a batch (the prologue); at least one planner call and one
+    # K2 a wave that ran; the per-query scorer never
+    if not (launches["segment_bound_gemm"] == SB_BATCHES
+            and launches["plan_wave"] >= 2 * waves
+            and launches["score_queue"] >= waves
+            and launches["score_clusters"] == 0):
+        raise AssertionError(f"pipelined: launches {launches}")
+    for q, out in zip(batches, outs):
+        ref, (plans, executed) = retrieve_with_plans(index, q, cfg_b,
+                                                     device=DEVICE)
+        check_identical(out, ref, "pipelined vs batched")
+        _, info = retrieve_pipelined(index, q, cfg_p, device=DEVICE,
+                                     with_info=True)
+        if info["summaries"] != wave_summaries(plans, executed):
+            raise AssertionError("pipelined: wave summaries differ from "
+                                 "the batched engine's recorded plans")
+
+    # batch ms of both engines in turns (p, b, b, p, ...)
+    turns = {"pipelined": [], "batched": []}
+    for r in range(3):
+        for q in batches:
+            order = [("pipelined", eng_p), ("batched", eng_b)]
+            for name, eng in (order if r % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                eng.search(q)
+                turns[name].append((time.perf_counter() - t0) * 1e3)
+    split = {}
+    for name, cfg in (("pipelined", cfg_p), ("batched", cfg_b)):
+        _, _, sp = planner_executor_split(index, batches[0], cfg, reps=5,
+                                          device=DEVICE)
+        split[name] = {key: (round(v, 4) if isinstance(v, float) else v)
+                       for key, v in sp.items()}
+    log("pipelined", batches=runs, launches=launches,
+        identical_to_batched=True, summaries_equal=True,
+        batch_ms={name: {"median": float(np.median(v)),
+                         "min": float(np.min(v)), "max": float(np.max(v)),
+                         "n": len(v)} for name, v in turns.items()},
+        split=split)
+    return {"launches": launches, "engine": eng_p}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
-    device time summed over kernels and copies (one stream, so the sum is
-    the busy time), the device's busy share, and the top consumers."""
+    device time summed over kernels and copies (the busy time on one
+    stream; on the pipelined engine's two streams an upper bound of it),
+    the device's busy share, and the top consumers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -576,7 +723,8 @@ def phase_profile(engine, queries, torch) -> None:
                   if e.device_type == DeviceType.CUDA),
                  key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in dev)
-    log("profile", batch=64, wall_ms=round(wall_ms, 3),
+    log("profile", engine=engine.cfg.engine, batch=64,
+        wall_ms=round(wall_ms, 3),
         device_ms=round(device_ms, 3),
         device_busy_share=round(device_ms / wall_ms, 4),
         device_events=sum(n for _, _, n in dev),
@@ -584,9 +732,26 @@ def phase_profile(engine, queries, torch) -> None:
         top=[[k[:80], round(ms, 3), n] for k, ms, n in dev[:12]])
 
 
-def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
+def superblock_plan_times(args, torch) -> dict:
+    """The planner call of the first superblock wave (G = cap), timed
+    against the plain planner on the same inputs."""
+    from repro_torch.core.plan import plan_wave
+    from repro_torch.kernels.plan_wave.compact import compact_front_plain
+    a, kw = _plan_call(args)
+    return dict(ms=time_ms(lambda: plan_wave(*a, **kw)),
+                device_ms=device_ms(lambda: plan_wave(*a, **kw)),
+                plain_ms=time_ms(lambda: plan_wave(
+                    *a, **kw, _compact=compact_front_plain)),
+                shape=dict(n_q=a[2].shape[0], G=a[0].shape[0]))
+
+
+def phase_kernels(index, queries, captured, launches, sb, pl,
+                  torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
-    (plus ragged shapes), with kernel, plain and library times."""
+    (plus ragged shapes), with kernel, plain and library times; ``sb``
+    (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
+    superblock wave width. Each row's ``launches`` is the serve phase's
+    count, ``path_launches`` every phase's."""
     from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
@@ -598,6 +763,8 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
     from repro_torch.core.plan import PLAN_FIELDS, plan_wave
     from repro_torch.core.types import QueryBatch, take_rows, widen_tids
     from repro_torch.kernels.query_terms import query_terms
+    from repro_torch.tools.plain_path import (PLANNED, score_admitted_plain,
+                                              score_clusters_plain)
     from repro_torch.tools.plan_cases import plan_cases
 
     rows = []
@@ -612,13 +779,26 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                                  f"version beyond rtol {RTOL}")
         return float((got - want).abs().max()) if got.numel() else 0.0
 
-    # ---- K1: the segment bounds, at both batch sizes of the main path ----
+    from repro_torch.kernels.segment_bound.ops import k1_blocking
+
+    def path_launches(name):
+        return {"serve": launches[name],
+                "superblock": sb["launches"][name],
+                "pipelined": pl["launches"][name]}
+
+    # ---- K1: the segment bounds, at both batch sizes of the main path
+    # and at the two-level walk's level 0 ----
+    level0 = next(a for a in sb["captured"]["segment_bound_gemm"]
+                  if a[0].data_ptr() == index.super_max_stacked.data_ptr())
     k1 = {}
-    for Q, (table, terms, scale) in sorted(
-            captured["segment_bound_gemm"].items(), reverse=True):
+    for what, (table, terms, scale) in [
+            (f"Q={Q}", args) for Q, args in sorted(
+                captured["segment_bound_gemm"].items(), reverse=True)] + [
+            ("level0", level0)]:
         S, V = table.shape
+        Q = terms.n_queries
         err = close(segment_bound_gemm(table, terms, scale),
-                    segment_bound_gemm_ref(table, terms, scale), f"K1 Q={Q}")
+                    segment_bound_gemm_ref(table, terms, scale), f"K1 {what}")
         qmap = terms.qmaps[:, :V]
         nnz = int(terms.count.sum())
         union = int(torch.unique(terms.tids[terms.tids < V]).numel())
@@ -626,7 +806,7 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
         # each table byte of the batch's union of terms read once
         b_ms, b_by = bound(union * S + terms.tids.numel() * 8 + Q * 4
                            + Q * S * 4, 2.0 * nnz * S)
-        k1[Q] = dict(
+        k1[what] = dict(
             max_abs_err=err,
             ms=time_ms(lambda: segment_bound_gemm(table, terms, scale)),
             device_ms=device_ms(
@@ -656,17 +836,25 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                             device=DEVICE)
     close(segment_bound_gemm(r_table, r_terms, scale),
           segment_bound_gemm_ref(r_table, r_terms, scale), "K1 ragged")
-    big, small = k1[max(k1)], k1[min(k1)]
+    big, small, lvl = k1.pop("Q=64"), k1.pop("Q=2"), k1.pop("level0")
+    S0 = lvl["shape"]["S"]
+    qblk, rows_blk, _, smem = k1_blocking(
+        S0, lvl["shape"]["Q"], lvl["shape"]["V"], lvl["shape"]["q_pad"],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    lvl["blocking"] = dict(queries_a_block=qblk, rows_a_block=rows_blk,
+                           blocks=-(-lvl["shape"]["Q"] // qblk)
+                           * -(-S0 // rows_blk), smem_bytes=smem)
     rows.append(dict(
         name="segment_bound_gemm", route="cuda",
         source="src/repro_torch/kernels/csrc/segment_bound.cu",
         replaces="src/repro/kernels/segment_bound/segment_bound.py:54",
         launches=launches["segment_bound_gemm"],
+        path_launches=path_launches("segment_bound_gemm"),
         **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "device_ms")},
         dense_bound_ms=big["dense_bound_ms"],
         table_stream_ms=big["table_stream_ms"], shape=big["shape"],
-        small_batch=small))
+        small_batch=small, level0=lvl))
 
     # ---- K2: the executor ------------------------------------------------
     (tids, tw, dseg, dmask, terms, plan, scale), kw = \
@@ -753,13 +941,38 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
         shape=dict(n_q=n_q, G=G, n_qb=n_qb, n_db=n_db, block_q=bq,
                    block_d=bd, n_tiles=int(plan.n_tiles),
                    n_blocks=int(plan.n_blocks),
-                   walked_docs=int(plan.walked_docs()))))
+                   walked_docs=int(plan.walked_docs())),
+        path_launches=path_launches("score_queue")))
+    # the first walked superblock's wave: G = cap member tiles
+    (s_args, s_kw) = sb["captured"]["score_admitted"]
+    s_plan = s_args[5]
 
-    # ---- K3: the wave planner, on every wave of a 64-query batch ---------
+    def k2_sb():
+        return score_admitted(*s_args, **s_kw)
+
+    def k2_sb_plain():
+        return score_admitted_plain(*s_args)
+    s_want = k2_sb_plain()
+    rows[-1]["superblock"] = dict(
+        max_abs_err=close(k2_sb(), s_want, "K2 superblock wave",
+                          neg=(s_want == NEG)),
+        ms=time_ms(k2_sb), device_ms=device_ms(k2_sb),
+        plain_ms=time_ms(k2_sb_plain),
+        shape=dict(n_q=s_args[4].n_queries, G=s_plan.cids.shape[0],
+                   n_qb=s_plan.n_qb, n_db=s_plan.n_db,
+                   n_tiles=int(s_plan.n_tiles),
+                   n_blocks=int(s_plan.n_blocks),
+                   walked_docs=int(s_plan.walked_docs())))
+
+    # ---- K3: the wave planner, on every wave of a 64-query batch of each
+    # walk ----------------------------------------------------------------
     waves = captured["plan_wave_kernel"]
+    sb_waves = sb["captured"]["plan_wave_kernel"]
     edge = [(c.name, c.args(DEVICE)) for c in plan_cases()]
     for what, (a, kw) in ([(f"wave {w}", _plan_call(args))
-                           for w, args in enumerate(waves)] + edge):
+                           for w, args in enumerate(waves)]
+                          + [(f"superblock wave {w}", _plan_call(args))
+                             for w, args in enumerate(sb_waves)] + edge):
         got = plan_wave(*a, **kw)
         want = plan_wave(*a, **kw, _compact=compact_front_plain)
         for f in PLAN_FIELDS:
@@ -816,6 +1029,9 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
                    block_q=plan.block_q, block_d=plan.block_d,
                    n_qb=plan.n_qb, run_slots=plan.drun_start.shape[-1],
                    n_tiles=int(plan.n_tiles), io_bytes=io_bytes),
+        path_launches=path_launches("plan_wave"),
+        superblock={**superblock_plan_times(sb_waves[0], torch),
+                    "waves_checked": len(sb_waves)},
         compact_front=dict(
             source="src/repro_torch/kernels/csrc/compact_front.cu",
             launches=launches["compact_front"],
@@ -884,6 +1100,7 @@ def phase_kernels(index, queries, captured, launches, torch) -> list[dict]:
         source="src/repro_torch/kernels/csrc/score_docs.cu",
         replaces="src/repro/kernels/score_docs/score_docs.py:40",
         launches=launches["score_clusters"], max_abs_err=err,
+        path_launches=path_launches("score_clusters"),
         ms=time_ms(k4), device_ms=device_ms(k4), plain_ms=time_ms(k4_plain),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
@@ -920,9 +1137,12 @@ def main() -> int:
     phase_golden()
     geo, index, queries = scale_world()
     engine, launches, captured = phase_serve(geo, index, queries, torch)
-    rows = phase_kernels(index, queries, captured, launches, torch)
+    sb = phase_superblock(geo, index, queries, torch)
+    pl = phase_pipelined(geo, index, queries, torch)
+    rows = phase_kernels(index, queries, captured, launches, sb, pl, torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
+        phase_profile(pl["engine"], queries, torch)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,11 @@ Two implementations of the same contraction:
     bounds and BoundSum come out of one pass. The queries go in as term
     lists (``kernels/query_terms.py``); on the card this is the K1
     kernel (``kernels/segment_bound``), which reads only their terms.
+
+The two-level walk (core/search.py) runs the same K1 contraction over
+the coarse superblock table (:func:`superblock_bounds`) and over the
+member rows of each walked superblock (:func:`stacked_bounds` on a
+gathered copy).
 """
 
 from __future__ import annotations
@@ -63,20 +68,43 @@ def cluster_bounds(index: ClusterIndex, queries: QueryBatch,
     """All bound statistics needed by any method, each (n_q, m) (plus
     ``"segment"`` at (n_q, m, n_seg)). ``terms``: the batch's term
     layout, built here when not given (``gemm`` only)."""
-    m, n_seg, V = index.seg_max.shape
-    if impl == "gather":
-        b = segment_bounds_gather(index, queries)
-        bound_sum = _gather_bounds(index.seg_max_collapsed[:, None, :],
-                                   queries, index.scale)[..., 0]
-    elif impl == "gemm":
+    if impl == "gemm":
         if terms is None:
             terms = query_terms(queries)
-        fused_table = index.seg_max_stacked.reshape(m * (n_seg + 1), V)
-        fused = segment_bound_gemm(fused_table, terms, index.scale)
-        fused = fused.reshape(queries.n_queries, m, n_seg + 1)
-        b = fused[..., :n_seg]                           # (n_q, m, n_seg)
-        bound_sum = fused[..., n_seg]                    # (n_q, m)
-    else:
+        return stacked_bounds(index.seg_max_stacked, terms, index.scale)
+    if impl != "gather":
         raise ValueError(f"unknown bounds impl {impl!r}")
+    b = segment_bounds_gather(index, queries)
+    bound_sum = _gather_bounds(index.seg_max_collapsed[:, None, :],
+                               queries, index.scale)[..., 0]
     return {"segment": b, "max_s": b.amax(dim=-1), "avg_s": b.mean(dim=-1),
             "bound_sum": bound_sum}
+
+
+def stacked_bounds(stacked: torch.Tensor, terms: QueryTerms,
+                   scale: torch.Tensor) -> dict[str, torch.Tensor]:
+    """:func:`cluster_bounds`' statistics over any stacked ``(R, n_seg +
+    1, V)`` uint8 table: one K1 pass over its ``R * (n_seg + 1)`` rows
+    (a free reshape; the table must be contiguous and 16-byte aligned on
+    the card). Each statistic is ``(n_q, R)``, ``"segment"`` ``(n_q, R,
+    n_seg)``."""
+    R, n_seg_p1, V = stacked.shape
+    n_seg = n_seg_p1 - 1
+    fused = segment_bound_gemm(stacked.reshape(R * n_seg_p1, V), terms,
+                               scale).reshape(terms.n_queries, R, n_seg_p1)
+    b = fused[..., :n_seg]
+    return {"segment": b, "max_s": b.amax(dim=-1), "avg_s": b.mean(dim=-1),
+            "bound_sum": fused[..., n_seg]}
+
+
+def superblock_bounds(index: ClusterIndex, terms: QueryTerms
+                      ) -> dict[str, torch.Tensor]:
+    """Level-0 statistics from the coarse superblock table, each ``(n_q,
+    S)`` (``"segment"`` ``(n_q, S, n_seg)``): K1 over
+    ``super_max_stacked.reshape(S * (n_seg + 1), V)``, an ``O(S * V)``
+    pass instead of ``O(m * V)``. The coarse table dominates every
+    member's rows elementwise and query weights are non-negative, so each
+    statistic dominates the same statistic of every member cluster: a
+    superblock the (mu, eta) test prunes here has no member the same test
+    would admit."""
+    return stacked_bounds(index.super_max_stacked, terms, index.scale)

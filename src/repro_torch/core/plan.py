@@ -301,6 +301,27 @@ def plan_wave(cids: torch.Tensor, live: torch.Tensor, admit: torch.Tensor,
         block_q=block_q, block_d=block_d)
 
 
+def wave_summaries(plans: list[WavePlan], executed) -> list[dict]:
+    """Per-wave work summary of recorded plans (``retrieve_with_plans``:
+    the executed waves' plans in walk order, and the ``(n_groups,)``
+    executed flags). One dict per executed wave, in walk order: admitted
+    tiles, live executor grid blocks, admitted (query, tile) pairs,
+    admitted segments, and the doc slots the executor walks
+    (``n_dblock * block_d``, the wave's term of ``TopK.n_walked_docs``).
+    The schema of ``repro.core.plan.wave_summaries``; one host read."""
+    waves = torch.nonzero(torch.as_tensor(executed).cpu()).flatten().tolist()
+    if not plans:
+        return []
+    counts = torch.stack([torch.stack([
+        p.n_tiles, p.n_blocks, p.admit.sum(dtype=torch.int32),
+        p.seg_admit.sum(dtype=torch.int32),
+        p.n_dblock.sum(dtype=torch.int32) * p.block_d]) for p in plans])
+    return [{"wave": g, "tiles_admitted": c[0], "grid_blocks": c[1],
+             "admitted_pairs": c[2], "admitted_segments": c[3],
+             "walked_doc_slots": c[4]}
+            for g, c in zip(waves, counts.tolist())]
+
+
 def doc_admission(plan: WavePlan, doc_seg_mod: torch.Tensor,
                   doc_mask: torch.Tensor) -> torch.Tensor:
     """(n_q, G, d_pad) bool: which (query, doc) scores are admitted — the

@@ -2,11 +2,12 @@
 single-host part of ``repro/serving/engine.py``).
 
 ``RetrievalEngine.search`` serves one batch through :func:`retrieve` on
-the index's device and records its latency; ``AdaptiveBudget`` turns a
-latency target into a cluster-visitation budget from the observed
-per-cluster cost. Snapshot publishers, the metrics registry, the
-observability funnel, the planner/executor split and the distributed path
-are not ported yet (ROADMAP queue A).
+the index's device (through :func:`retrieve_pipelined` when the config
+asks for ``engine="pipelined"``) and records its latency;
+``AdaptiveBudget`` turns a latency target into a cluster-visitation
+budget from the observed per-cluster cost. Snapshot publishers, the
+metrics registry, the observability funnel and the distributed path are
+not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.search import SearchConfig, retrieve
+from repro_torch.core.search import (SearchConfig, retrieve,
+                                     retrieve_pipelined)
 from repro_torch.core.types import ClusterIndex, QueryBatch, TopK
 from repro_torch.device import check_on, resolve_device
 
@@ -89,7 +91,9 @@ class RetrievalEngine:
     """Batched ASC serving with latency accounting over a static
     :class:`ClusterIndex` that already lives on ``device`` (None: the
     CUDA card). ``last_run`` holds the engine, waves and host syncs of the
-    most recent search."""
+    most recent search, and on the pipelined engine its launch counts
+    (``plan_launches``, ``exec_launches``, ``fused_waves``) and host
+    stalls (``plan_ms``, ``exec_ms``)."""
 
     def __init__(self, index: ClusterIndex, cfg: SearchConfig,
                  adaptive: AdaptiveBudget | None = None,
@@ -117,9 +121,22 @@ class RetrievalEngine:
         return m + 1                       # unbudgeted
 
     def _run(self, queries: QueryBatch, budget: int, mu_eta) -> TopK:
-        out = retrieve(self.index, queries, self.cfg, budget=budget,
-                       mu_eta=mu_eta, device=self.device,
-                       stats=self.last_run)
+        if self.cfg.engine == "pipelined":
+            # the plan launches read cfg's (mu, eta): per-request
+            # fidelity is not plumbed through them
+            if mu_eta is not None:
+                raise ValueError("per-request mu_eta is not supported on "
+                                 "engine='pipelined'")
+            out, info = retrieve_pipelined(
+                self.index, queries, self.cfg, budget, device=self.device,
+                with_info=True, stats=self.last_run)
+            self.last_run.update({key: info[key] for key in (
+                "plan_launches", "exec_launches", "fused_waves", "plan_ms",
+                "exec_ms")})
+        else:
+            out = retrieve(self.index, queries, self.cfg, budget=budget,
+                           mu_eta=mu_eta, device=self.device,
+                           stats=self.last_run)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out

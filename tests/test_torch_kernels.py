@@ -17,7 +17,9 @@ against the JAX reference, on the same numpy inputs:
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card (the wave planner, K3, on ``repro_torch.tools.plan_cases``; its plain
 version is ``plan_wave``'s op-by-op code, whose CPU parity is
-tests/test_torch_plan.py's); they skip where there is none. This file must also collect on the
+tests/test_torch_plan.py's), and the superblock walk and the pipelined
+engine on the card against the on-card plain path; they skip where there
+is none. This file must also collect on the
 machine with the card, which has no JAX: the reference is imported inside
 the tests that use it. Run the card tests with
 ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -25,12 +27,15 @@ the tests that use it. Run the card tests with
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.index import build_index
-from repro_torch.core.search import SearchConfig, retrieve
+from repro_torch.core.search import (SearchConfig, retrieve,
+                                     retrieve_pipelined, retrieve_with_plans)
 from repro_torch.core.plan import PLAN_FIELDS, plan_wave
 from repro_torch.core.types import TOPK_FIELDS, QueryBatch, take_rows
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
@@ -49,6 +54,7 @@ from repro_torch.kernels.score_docs.ref import (score_clusters_ref,
                                                 score_docs_ref)
 from repro_torch.kernels.segment_bound.ops import segment_bound_gemm
 from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
+from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
 
 RTOL = 1e-5
 
@@ -685,6 +691,64 @@ def test_card_retrieval_equals_cpu_path(cuda):
                     assert torch.equal(g, w), (conf, impl, f)
     after = launch_counts()
     assert all(after[k] > before[k] for k in MAIN_PATH)
+
+
+def _assert_fields(got, want, what, exact=False):
+    for f in TOPK_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if f == "scores" and not exact:
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=1e-6)
+        else:
+            assert torch.equal(g, w), (what, f)
+
+
+@pytest.mark.gpu
+def test_superblock_walk_on_card(cuda):
+    """The two-level walk on the card (K1 at level 0 and for each walked
+    superblock's members, the planner and K2 a walked wave) against the
+    same walk with every kernel swapped for its plain version on the
+    card: ids and counters exactly, scores to rtol 1e-5."""
+    index, queries = _card_world(cuda)
+    before = launch_counts()
+    for conf in (dict(mu=0.8, eta=1.0, method="asc"),
+                 dict(mu=1.0, eta=1.0, method="anytime", cluster_budget=4),
+                 dict(mu=0.6, eta=0.8, method="asc", block_d=None)):
+        cfg = SearchConfig(**{**dict(k=10, engine="batched", block_q=4,
+                                     block_d=8, bounds_impl="gemm",
+                                     superblocks=True), **conf})
+        got = retrieve(index, queries, cfg, device=cuda)
+        with swapped_wrappers(plain_versions):
+            want = retrieve(index, queries, cfg, device=cuda)
+        _assert_fields(got, want, conf)
+    after = launch_counts()
+    assert all(after[k] > before[k] for k in ("segment_bound_gemm",
+                                              "plan_wave", "score_queue"))
+
+
+@pytest.mark.gpu
+def test_pipelined_engine_on_card(cuda):
+    """The pipelined engine on the card (planner stream, executor stream)
+    equals the card's batched engine bit for bit, wave summaries included,
+    at each fuse width, and the on-card plain path field for field."""
+    from repro_torch.core.plan import wave_summaries
+    index, queries = _card_world(cuda)
+    base = SearchConfig(k=10, mu=0.8, eta=1.0, engine="batched", block_q=4,
+                        block_d=8, group_size=2, bounds_impl="gemm")
+    ref, (plans, executed) = retrieve_with_plans(index, queries, base,
+                                                 device=cuda)
+    for fuse in (1, 2, 4):
+        cfg = dataclasses.replace(base, engine="pipelined", fuse_waves=fuse)
+        before = launch_counts()
+        got, info = retrieve_pipelined(index, queries, cfg, device=cuda,
+                                       with_info=True)
+        after = launch_counts()
+        _assert_fields(got, ref, fuse, exact=True)
+        assert info["summaries"] == wave_summaries(plans, executed)
+        assert all(after[k] > before[k] for k in (
+            "segment_bound_gemm", "plan_wave", "score_queue"))
+        with swapped_wrappers(plain_versions):
+            plain = retrieve_pipelined(index, queries, cfg, device=cuda)
+        _assert_fields(got, plain, fuse)
 
 
 def test_k2_phase_cuts_find_their_loops():

@@ -1,6 +1,7 @@
 """End-to-end parity of the PyTorch port's retrieval on the golden world.
 
-For the six configs of this slice the port (on the CPU, its plain path):
+For the seven golden configs (the batched, per-query and two-level
+superblock walks) the port (on the CPU, its plain path):
 
   * matches tests/golden/golden_topk.json by test_golden_regression.py's
     rule (ids exact up to ties within 1e-3, scores to 1e-4);
@@ -8,7 +9,8 @@ For the six configs of this slice the port (on the CPU, its plain path):
     TopK fields: ids and the nine counters exactly, scores to rtol 1e-5
     (fp32 sums in another order);
   * does so with per-row ``mu_eta`` batches, a budget override and both
-    bound impls.
+    bound impls;
+  * prices the superblocks' level 0 as the reference does.
 
 The card's kernel path is held against this CPU path in
 tests/test_torch_kernels.py (which collects without JAX).
@@ -30,11 +32,13 @@ from repro_torch.convert import index_from_arrays, queries_from_arrays
 from repro_torch.core import bounds as tbounds
 from repro_torch.core.search import SearchConfig, brute_force_topk, retrieve
 from repro_torch.core.types import INDEX_FIELDS, TOPK_FIELDS
+from repro_torch.kernels.query_terms import query_terms
 from test_golden_regression import (ENGINES, GOLDEN_PATH, _check_entry,
                                     _topk_entry, _world)
 
 SLICE = ("batched_asc", "batched_asc_safe", "batched_anytime",
-         "batched_budget", "per_query_asc")
+         "batched_budget", "per_query_asc", "superblock_asc_safe",
+         "superblock_approx")
 MU_ETA = np.array([[0.8, 1.0], [1.0, 1.0], [0.5, 0.7], [0.9, 0.9],
                    [0.6, 1.0], [1.0, 1.0]], np.float32)
 
@@ -100,7 +104,7 @@ def test_golden_and_live_reference(golden, name):
 
 
 @pytest.mark.parametrize("name", ["batched_asc", "batched_anytime",
-                                  "per_query_asc"])
+                                  "per_query_asc", "superblock_approx"])
 def test_mixed_row_mu_eta_matches_reference(name):
     jidx, jq, tidx, tq = world()
     jcfg = ENGINES[name]
@@ -142,10 +146,36 @@ def test_bound_impls_match_reference(impl):
 
 def test_budget_override_matches_reference():
     jidx, jq, tidx, tq = world()
-    for name in ("batched_asc", "per_query_asc"):
+    for name in ("batched_asc", "per_query_asc", "superblock_approx"):
         want = jsearch.retrieve(jidx, jq, ENGINES[name], budget=jnp.int32(3))
         got = retrieve(tidx, tq, port_cfg(ENGINES[name]), budget=3,
                        device="cpu")
         assert_topk_equal(want, got, f"{name} budget 3")
         assert int(got.n_scored_clusters.max()) <= 3
 
+
+@pytest.mark.parametrize("method", ["asc", "anytime"])
+def test_superblock_walk_variants_match_reference(method):
+    """The two-level walk under a budget horizon tight enough that level 0
+    skips superblocks while members stay budget-free, and with the
+    collapsed (anytime) bounds, against the reference."""
+    jidx, jq, tidx, tq = world()
+    jcfg = dataclasses.replace(ENGINES["superblock_approx"], method=method,
+                               mu=0.6 if method == "asc" else 1.0,
+                               eta=1.0, bounds_impl="gemm")
+    for budget in (None, 2):
+        b = None if budget is None else jnp.int32(budget)
+        want = jsearch.retrieve(jidx, jq, jcfg, budget=b)
+        got = retrieve(tidx, tq, port_cfg(jcfg), budget=budget,
+                       device="cpu")
+        assert_topk_equal(want, got, f"superblock {method} budget {budget}")
+
+
+def test_superblock_bounds_match_reference():
+    jidx, jq, tidx, tq = world()
+    want = jbounds.superblock_bounds(jidx, jq.dense_map())
+    got = tbounds.superblock_bounds(tidx, query_terms(tq))
+    assert got["segment"].shape == (tq.n_queries, tidx.n_super, tidx.n_seg)
+    for key in ("segment", "max_s", "avg_s", "bound_sum"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)

@@ -7,8 +7,9 @@ repro_torch.core.search), held against the JAX package on the golden world.
   * ``RetrievalEngine.search`` returns what ``retrieve`` returns, and its
     budget controls (adaptive budget, ``budget_frac``) behave as the
     reference's;
-  * SearchConfig keeps the reference's validation and refuses what this
-    slice does not port.
+  * SearchConfig and the entry points keep the reference's validation
+    and its refusals;
+  * ``engine="pipelined"`` serves through ``retrieve_pipelined``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 from repro.core import search as jsearch
 from repro.serving import engine as jengine
 from repro_torch.core.search import (AUTO_ENGINE_MIN_BATCH, SearchConfig,
-                                     resolved_engine, retrieve)
+                                     resolved_engine, retrieve,
+                                     retrieve_pipelined, retrieve_with_plans)
 from repro_torch.core.types import TOPK_FIELDS
 from repro_torch.serving.engine import (AdaptiveBudget, RetrievalEngine,
                                         ServeStats)
@@ -126,14 +128,34 @@ def test_config_validation():
         SearchConfig(bounds_impl="dense")
     with pytest.raises(ValueError):
         SearchConfig(block_q=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchConfig(superblocks=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchConfig(engine="pipelined")
+    with pytest.raises(ValueError, match="batched"):
+        SearchConfig(superblocks=True, engine="pipelined")
+    with pytest.raises(ValueError, match="batched"):
+        jsearch.SearchConfig(superblocks=True, engine="pipelined")
     _, _, tidx, tq = world()
     with pytest.raises(ValueError, match="mu_eta"):
         retrieve(tidx, tq, SearchConfig(), mu_eta=np.ones((2, 2), np.float32),
                  device="cpu")
+    # the reference's refusals: the pipelined engine only through its own
+    # entry point, without per-request (mu, eta) and without superblocks;
+    # plan recording only on the single-level batched walk
+    piped = SearchConfig(engine="pipelined")
+    with pytest.raises(ValueError, match="retrieve_pipelined"):
+        retrieve(tidx, tq, piped, device="cpu")
+    with pytest.raises(ValueError, match="mu_eta"):
+        RetrievalEngine(tidx, piped, device="cpu").search(
+            tq, mu_eta=np.ones((6, 2), np.float32))
+    with pytest.raises(ValueError, match="superblocks"):
+        retrieve_pipelined(tidx, tq, SearchConfig(superblocks=True),
+                           device="cpu")
+    with pytest.raises(ValueError, match="superblocks"):
+        retrieve_with_plans(tidx, tq, SearchConfig(superblocks=True),
+                            device="cpu")
+    with pytest.raises(ValueError, match="engine='batched'"):
+        retrieve_with_plans(tidx, tq, SearchConfig(engine="per_query"),
+                            device="cpu")
+    # auto: plan recording wins the route at any batch size
+    assert resolved_engine(SearchConfig(), 2, record_plans=True) == "batched"
 
 
 def test_budget_accepts_a_tensor():
@@ -143,3 +165,32 @@ def test_budget_accepts_a_tensor():
     want = jsearch.retrieve(jidx, jq, jsearch.SearchConfig(
         k=10, method="anytime", block_q=4, block_d=8), budget=jnp.int32(4))
     assert_topk_equal(want, got, "tensor budget")
+
+
+def test_pipelined_engine_serves_retrieve_pipelined():
+    """RetrievalEngine(engine="pipelined") returns what retrieve_pipelined
+    returns and records the launch counts, as the reference's engine
+    serves through retrieve_pipelined; its results equal the batched
+    engine's and the reference's."""
+    jidx, jq, tidx, tq = world()
+    kw = dict(k=10, mu=0.8, eta=1.0, block_q=4, block_d=8, group_size=2)
+    cfg = SearchConfig(**kw, engine="pipelined")
+    eng = RetrievalEngine(tidx, cfg, device="cpu")
+    eng.warmup(tq)
+    got = eng.search(tq)
+    want, info = retrieve_pipelined(tidx, tq, cfg, eng._budget(),
+                                    device="cpu", with_info=True)
+    for f in TOPK_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert eng.last_run["engine"] == "pipelined"
+    for key in ("plan_launches", "exec_launches", "fused_waves"):
+        assert eng.last_run[key] == info[key], key
+    assert eng.last_run["waves"] == len(info["summaries"]) > 1
+    batched = retrieve(tidx, tq, SearchConfig(**kw, engine="batched"),
+                       device="cpu")
+    for f in TOPK_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(batched, f)), f
+    ref = jengine.RetrievalEngine(
+        jidx, jsearch.SearchConfig(**kw, engine="pipelined")).search(jq)
+    assert_topk_equal(ref, got, "pipelined engine")
+    assert eng.stats.n_requests == 1
