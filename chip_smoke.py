@@ -11,7 +11,11 @@ nonzero and prints no result):
   2. golden  — rebuild the golden world of tests/test_golden_regression.py
                with the port's own numpy builders and run its seven
                configs (two of them the superblock walk) and brute force
-               on the card against tests/golden/golden_topk.json;
+               on the card against tests/golden/golden_topk.json; then
+               push it through the fixture's churn stream with the port's
+               MutableIndex, publish the snapshot to the card and hold the
+               three churned configs and brute force against the file's
+               ``churned`` entries;
   3. serve   — the main path at the MS MARCO widths of
                ``configs/asc_splade.py`` (V = 30522, t_pad = 128,
                q_pad = 32, n_seg = 8, d_pad = 2560, group_size = 32, k = 10,
@@ -37,7 +41,33 @@ nonzero and prints no result):
                wave summaries equal to the batched engine's recorded plans;
                batch ms of both engines in turns, their launch counts and
                host stalls, and planner_executor_split for both routes;
-  6. kernels — each kernel against its plain version on the card at the
+  6. lifecycle — a live, churning index at the same widths: a
+               DurableIndexWriter (WAL, fsync "interval", a checkpoint
+               every 4 commits) takes 6 rounds of 4,096 uniform deletes and
+               4,096 inserts drawn from the scale world's distribution,
+               with one rebalancing, requantizing compaction after round
+               4, and publishes one epoch a round to the card; a
+               RetrievalEngine with observability over its publisher
+               serves each epoch a 64-query batch (K1, the planner, K2)
+               and a 2-query batch (K1, K4), each held against the on-card
+               plain path on all 11 fields (ids by the tie rule; the rows
+               two fp32 sum orders rank differently are printed), every
+               kernel call of both batches against its plain version on
+               the epoch's churned inputs, and safe mode against brute
+               force over the epoch's live docs (16 queries). In round 5 a
+               WAL append fault degrades health; the engine serves the last
+               good epoch bit for bit; DurableIndexWriter.recover
+               republishes and the stream finishes. The recovered writer
+               must equal a shadow MutableIndex that ran every op without
+               a WAL (every array, op_seq, scale, rng state), and the last
+               epoch on the card its host mirrors. Launches are counted
+               around the engine's searches only; the line gives publish
+               ms and GB/s, checkpoint, compaction and recovery seconds,
+               health transitions, card memory with two epochs alive,
+               each epoch's batch ms beside the serve phase's fresh-index
+               ms for the same batch, its funnel, and the ``index_*``,
+               ``wal_*`` and ``lifecycle_*`` metrics;
+  7. kernels — each kernel against its plain version on the card at the
                inputs the main path gave it (captured in a warm-up run
                that is not counted) and at ragged shapes, with times: K1
                at both batch sizes the main path gives it (64 and 2), K2
@@ -54,6 +84,8 @@ nonzero and prints no result):
                superblock wave (G = 23; every superblock wave of a batch
                for the planner).
 
+Every row of the ``kernels`` line gives its launches in each phase
+(``path_launches``: serve, superblock, pipelined, lifecycle).
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -63,9 +95,12 @@ kernels).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -253,6 +288,19 @@ def check_fields(a, b, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
+def check_close(a, b, what: str) -> None:
+    """All 11 TopK fields: the nine counters exactly, scores position by
+    position to RTOL, ids by the tie rule of ``check_topk``. With the
+    ranked scores equal to RTOL, two ids can only trade places where
+    their scores tie that closely: K2 and the plain version sum in
+    another fp32 order, so a near-tie (14.213666 against 14.213664) may
+    come out in either order."""
+    import torch
+    if not torch.allclose(a.scores, b.scores, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: scores differ beyond rtol {RTOL}")
+    check_same(a, b, what)
+
+
 def check_identical(a, b, what: str) -> None:
     """All 11 TopK fields bit for bit."""
     import torch
@@ -355,27 +403,46 @@ GOLDEN_CONFIGS = {
 }
 
 
-def phase_golden() -> None:
-    from repro_torch.core.index import build_index
-    from repro_torch.core.search import SearchConfig, brute_force_topk, retrieve
-    from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
+# tests/test_golden_regression.py's CHURNED_ENGINES
+CHURNED_CONFIGS = ("batched_asc_safe", "batched_asc", "superblock_asc_safe")
 
-    golden = json.loads(GOLDEN.read_text())["engines"]
-    spec = CorpusSpec(n_docs=600, vocab=256, n_topics=8, doc_terms=20,
-                      t_pad=24, query_terms=8, q_pad=12, seed=777)
-    docs, doc_topic = make_corpus(spec)
-    index = build_index(docs, doc_topic % 12, m=12, n_seg=4, d_pad=64,
-                        seed=778, device=DEVICE)
-    queries, _ = make_queries(spec, 6, doc_topic, seed=779)
+
+def phase_golden() -> None:
+    from repro_torch.core.search import (SearchConfig, brute_force_topk,
+                                         retrieve)
+    from repro_torch.lifecycle import MutableIndex
+    from repro_torch.tools.golden_world import (WRITER_SEED, apply_op,
+                                                golden_churn_ops,
+                                                golden_world)
+
+    golden = json.loads(GOLDEN.read_text())
+    index, queries = golden_world(DEVICE)
     results = {name: retrieve(index, queries, SearchConfig(**kw),
                               device=DEVICE)
                for name, kw in GOLDEN_CONFIGS.items()}
     results["brute_force"] = brute_force_topk(index, queries, 10,
                                               device=DEVICE)
     for name, r in results.items():
-        check_topk(golden[name]["doc_ids"], golden[name]["scores"],
-                   r.doc_ids.cpu(), r.scores.cpu(), f"golden/{name}")
-    log("golden", configs=sorted(results), matched=True)
+        want = golden["engines"][name]
+        check_topk(want["doc_ids"], want["scores"], r.doc_ids.cpu(),
+                   r.scores.cpu(), f"golden/{name}")
+    # the churned fixture: the golden stream through the port's writer,
+    # its snapshot published to the card
+    mi = MutableIndex(index, seed=WRITER_SEED)
+    for op in golden_churn_ops():
+        apply_op(mi, op)
+    churned = mi.snapshot(DEVICE)
+    for name in CHURNED_CONFIGS + ("brute_force",):
+        r = (brute_force_topk(churned, queries, 10, device=DEVICE)
+             if name == "brute_force" else
+             retrieve(churned, queries, SearchConfig(**GOLDEN_CONFIGS[name]),
+                      device=DEVICE))
+        want = golden["churned"][name]
+        check_topk(want["doc_ids"], want["scores"], r.doc_ids.cpu(),
+                   r.scores.cpu(), f"golden/churned/{name}")
+    log("golden", configs=sorted(results), matched=True,
+        churned=list(CHURNED_CONFIGS) + ["brute_force"],
+        churned_matched=True)
 
 
 def scale_world():
@@ -528,7 +595,8 @@ def phase_serve(geo, index, queries, torch):
                safe.scores.cpu(), "safe mode vs brute force (8 queries)")
     log("checks", kernel_vs_plain=True, kernel_waves=st_k["waves"],
         plain_waves=st_p["waves"], safe_vs_brute_force=True)
-    return engine, launches, captured
+    fresh_ms = [b["ms"] for b in per_batch[:8]]
+    return engine, launches, captured, fresh_ms
 
 
 SB_BATCHES = 4          # 64-query batches each of the two engines serves
@@ -701,6 +769,379 @@ def phase_pipelined(geo, index, queries, torch) -> dict:
     return {"launches": launches, "engine": eng_p}
 
 
+# lifecycle phase: 6 rounds of 4,096 deletes and 4,096 inserts, one
+# requantizing compaction after round 4, a writer fault in round 5
+LC_ROUNDS = 6
+LC_DOCS = 4096
+LC_COMPACT_AFTER = 4
+LC_FAULT_ROUND = 5
+LC_SEED = SEED + 10
+
+
+def lifecycle_ops(live_ids, geo) -> tuple[list, list]:
+    """The phase's op stream as concrete data (the form of
+    tests/test_crash_recovery.py), and each round's [lo, hi) range.
+    Deletes are drawn uniformly from the live ids; inserted documents
+    come from the scale world's own distribution (``make_corpus_fast``
+    with seeds of their own) and take the ids a writer hands out next;
+    the compaction rebalances and requantizes."""
+    from repro_torch.data.synthetic import CorpusSpec
+    spec = CorpusSpec(n_docs=LC_ROUNDS * LC_DOCS, vocab=geo.vocab,
+                      n_topics=N_TOPICS, doc_terms=67, t_pad=geo.t_pad,
+                      query_terms=23, q_pad=geo.q_pad, seed=LC_SEED)
+    docs, _ = make_corpus_fast(spec, rng_seed=LC_SEED + 1)
+    tids, tw, mask = docs.tids.numpy(), docs.tw.numpy(), docs.mask.numpy()
+    rng = np.random.default_rng(LC_SEED + 2)
+    live = np.sort(np.asarray(live_ids, np.int64))
+    next_id = int(live.max()) + 1
+    ops, bounds = [], []
+    for r in range(LC_ROUNDS):
+        lo = len(ops)
+        if r == LC_COMPACT_AFTER:
+            ops.append(("compact", True, True))
+        dead = rng.choice(live, LC_DOCS, replace=False)
+        ops += [("delete", int(d)) for d in dead]
+        live = np.setdiff1d(live, dead)
+        for i in range(r * LC_DOCS, (r + 1) * LC_DOCS):
+            ops.append(("insert", tids[i][mask[i]].astype(np.int64),
+                        tw[i][mask[i]]))
+        live = np.concatenate([live, np.arange(next_id, next_id + LC_DOCS)])
+        next_id += LC_DOCS
+        bounds.append((lo, len(ops)))
+    return ops, bounds
+
+
+@contextlib.contextmanager
+def timed_methods(spec: dict):
+    """Record the seconds of every call of each ``(class, method)`` in its
+    list while the block runs."""
+    originals = []
+    for (cls, name), sink in spec.items():
+        fn = getattr(cls, name)
+        originals.append((cls, name, fn))
+
+        def wrapper(self, *a, _fn=fn, _sink=sink, **kw):
+            t0 = time.perf_counter()
+            out = _fn(self, *a, **kw)
+            _sink.append(time.perf_counter() - t0)
+            return out
+        setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
+
+
+def hold_kernels(run, torch) -> dict:
+    """Run ``run()`` once with every kernel wrapper recording its calls,
+    then hold each recorded call's kernel output against its plain version
+    on the same inputs: the planner's queues exactly, bounds and scores to
+    RTOL with NEG positions exact. These launches are comparisons: the
+    caller counts only its own searches."""
+    from repro_torch.kernels.score_cluster_batch.ref import NEG
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+    calls = []
+
+    def recorder(name, fn):
+        def rec(*a, **kw):
+            calls.append((name, fn, a, kw))
+            return fn(*a, **kw)
+        return rec
+    with swapped_wrappers(recorder):
+        run()
+    held = {}
+    for name, fn, a, kw in calls:
+        got, want = fn(*a, **kw), plain_versions(name, fn)(*a, **kw)
+        row = held.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+        row["calls"] += 1
+        if name == "plan_wave_kernel":
+            bad = [f for f, x in want.items() if not torch.equal(got[f], x)]
+            if bad:
+                raise AssertionError(f"planner kernel differs from its "
+                                     f"plain version: {bad}")
+            continue
+        neg = want == NEG
+        if not torch.equal(got == NEG, neg):
+            raise AssertionError(f"{name}: NEG positions differ")
+        g, w = got[~neg], want[~neg]
+        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version beyond rtol {RTOL}")
+        if g.numel():
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((g - w).abs().max()))
+    return held
+
+
+def reordered_rows(got, want) -> list[dict]:
+    """The rows whose ids two paths ranked in another order, with the
+    differing positions' ids and scores on each side."""
+    rows = []
+    for q in (got.doc_ids != want.doc_ids).any(1).nonzero().flatten():
+        q = int(q)
+        pos = (got.doc_ids[q] != want.doc_ids[q]).nonzero().flatten()
+        rows.append(dict(query=q, positions=pos.tolist(),
+                         kernel=[[int(got.doc_ids[q, i]),
+                                  float(got.scores[q, i])] for i in pos],
+                         plain=[[int(want.doc_ids[q, i]),
+                                 float(want.scores[q, i])] for i in pos]))
+    return rows
+
+
+def _dir_mb(path: str) -> float:
+    return sum(e.stat().st_size for e in os.scandir(path)
+               if e.is_file()) / 1e6
+
+
+def phase_lifecycle(geo, index, queries, fresh_ms, torch) -> dict:
+    """A live, churning index served on the card: a DurableIndexWriter
+    (WAL, checkpoints every 4 commits) publishes one epoch a round to a
+    SnapshotPublisher that a RetrievalEngine with observability serves;
+    each epoch's batches are held against the on-card plain path and safe
+    mode against brute force. A WAL fault in round 5 degrades health while
+    the engine keeps serving the last good epoch; recovery republishes and
+    the stream finishes. The recovered writer must equal a shadow writer
+    that ran every op without a WAL, and the last epoch on the card the
+    writer's host mirrors."""
+    import tempfile
+
+    from repro_torch.core.search import (brute_force_topk, resolved_engine,
+                                         retrieve)
+    from repro_torch.core.types import INDEX_FIELDS
+    from repro_torch.kernels import (MAIN_PATH, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.lifecycle import (DurableIndexWriter, FaultInjected,
+                                       FaultSchedule, MutableIndex, install)
+    from repro_torch.obs import Observability, funnel_from_topk
+    from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.tools.golden_world import apply_op
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    cfg = _walk_cfg(geo, engine="auto")
+    safe_cfg = dataclasses.replace(cfg, mu=1.0, eta=1.0, engine="batched")
+    launches = {name: 0 for name in launch_counts()}
+    times = {"publish": [], "checkpoint": [], "compact": []}
+    epochs = []
+
+    def serve(engine, q):
+        """One engine search, its kernel launches counted (and only
+        its)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.search(q)
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, n in launch_counts().items():
+            launches[name] += n
+        return out, ms
+
+    def check_epoch(engine, writer, r, what):
+        """Serve a 64-query batch (twice: the first call on the epoch and
+        a warm one) and a 2-query batch on the current epoch; hold each
+        against the on-card plain path on the same epoch, and safe mode
+        against brute force over its live docs."""
+        b = (r - 1) % 8
+        q64 = _slice(queries, 64 * b, 64 * (b + 1))
+        q2 = _slice(queries, 512 + 2 * (r % 3), 514 + 2 * (r % 3))
+        out64, ms_first = serve(engine, q64)
+        _, ms_warm = serve(engine, q64)
+        out2, ms2 = serve(engine, q2)
+        snap = writer.publisher.current
+        if engine.last_epoch != snap.epoch:
+            raise AssertionError(f"lifecycle: served epoch "
+                                 f"{engine.last_epoch}, current "
+                                 f"{snap.epoch}")
+        reordered = []
+        with swapped_wrappers(plain_versions):
+            for q, out, n in ((q64, out64, 64), (q2, out2, 2)):
+                want = retrieve(snap.index, q, cfg, device=DEVICE)
+                check_close(out, want, f"lifecycle {what}: kernel vs "
+                            f"plain ({n} queries)")
+                # ids the two paths order differently (near-ties)
+                reordered += [dict(batch=n, **row)
+                              for row in reordered_rows(out, want)]
+        # each kernel call of both batches on this epoch's churned inputs
+        # (tombstones, unsorted tails, the current scale)
+        held = hold_kernels(lambda: [retrieve(snap.index, q, cfg,
+                                              device=DEVICE)
+                                     for q in (q64, q2)], torch)
+        q16 = _slice(queries, 582, 598)
+        safe = retrieve(snap.index, q16, safe_cfg, device=DEVICE)
+        bf = brute_force_topk(snap.index, q16, geo.k, device=DEVICE)
+        check_topk(bf.doc_ids.cpu(), bf.scores.cpu(), safe.doc_ids.cpu(),
+                   safe.scores.cpu(), f"lifecycle {what}: safe mode vs "
+                   f"brute force (16 queries)")
+        mi = writer.mutable
+        epochs.append(dict(
+            epoch=snap.epoch, what=what, n_docs=snap.n_docs,
+            scale=float(mi.scale), slack=mi.slack(),
+            unsorted_tail_fraction=mi.unsorted_tail_fraction(),
+            clusters_with_tail=int((mi.sorted_upto < mi.d_pad).sum()),
+            tie_reordered=reordered, kernels_held=held,
+            batch=b, ms_64=round(ms_first, 3), ms_64_warm=round(ms_warm, 3),
+            fresh_ms_64=fresh_ms[b], ms_2=round(ms2, 3),
+            engine_64=resolved_engine(cfg, 64),
+            engine_2=resolved_engine(cfg, 2),
+            memory_allocated_mb=round(torch.cuda.memory_allocated() / 1e6,
+                                      1),
+            funnel_64={k: v for k, v in funnel_from_topk(
+                out64, batched=True, n_q=64, d_pad=snap.index.d_pad,
+                budget_clusters=snap.index.m).items() if k != "d_pad"}))
+        return out64
+
+    spec = {(MutableIndex, "snapshot"): times["publish"],
+            (MutableIndex, "checkpoint"): times["checkpoint"],
+            (MutableIndex, "compact"): times["compact"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, timed_methods(spec):
+        obs = Observability()
+        t0 = time.perf_counter()
+        # compaction only where the op stream puts it (slack stays far
+        # below 1 here), so every op is one op_seq and the shadow, which
+        # never commits, runs the same ops
+        writer = DurableIndexWriter(index, tmp, fsync="interval",
+                                    checkpoint_every=4, seed=LC_SEED + 3,
+                                    compact_threshold=1.0,
+                                    registry=obs.registry, device=DEVICE)
+        t_writer = time.perf_counter() - t0
+        engine = RetrievalEngine(writer.publisher, cfg, device=DEVICE,
+                                 obs=obs)
+        t0 = time.perf_counter()
+        ops, bounds = lifecycle_ops(writer.mutable.live_ids(), geo)
+        t_ops = time.perf_counter() - t0
+        fault, recovery, slow_reader, good64 = {}, {}, None, None
+        for r, (lo, hi) in enumerate(bounds, 1):
+            todo = ops[lo:hi]
+            if r == LC_FAULT_ROUND:
+                # the fault: the WAL refuses one append mid-round (after
+                # the compaction, the deletes and half the inserts); the
+                # writer's in-memory state is then not trusted
+                nth = 1 + LC_DOCS + LC_DOCS // 2 + 1
+                sched = FaultSchedule([("wal.append.pre_write", nth,
+                                        "raise")])
+                try:
+                    with install(sched):
+                        for op in todo:
+                            apply_op(writer, op)
+                except FaultInjected:
+                    pass
+                if sched.fired != [("wal.append.pre_write", "raise")]:
+                    raise AssertionError(f"lifecycle: fault fired "
+                                         f"{sched.fired}")
+                engine.health.to("degraded", "wal append fault")
+                b = (LC_FAULT_ROUND - 2) % 8
+                q = _slice(queries, 64 * b, 64 * (b + 1))
+                degraded, ms = serve(engine, q)
+                check_identical(degraded, good64, "lifecycle: degraded "
+                                "batch vs the last good epoch")
+                fault = dict(op=writer.mutable.op_seq, nth_append=nth,
+                             served_epoch=engine.last_epoch,
+                             degraded_batch_ms=round(ms, 3),
+                             identical_to_last_good=True)
+                # the dead writer's log as far as it got; its object goes
+                writer.mutable.wal.close()
+                publisher = writer.publisher
+                del writer
+                engine.health.to("recovering", "recovering the writer")
+                t0 = time.perf_counter()
+                writer = DurableIndexWriter.recover(
+                    tmp, fsync="interval", checkpoint_every=4,
+                    publisher=publisher, registry=obs.registry,
+                    device=DEVICE)
+                rec_s = time.perf_counter() - t0
+                engine.health.to("healthy", "recovered epoch published")
+                st = writer.recovery_stats
+                recovery = dict(seconds=round(rec_s, 3),
+                                load_and_replay_s=round(st["duration_s"], 3),
+                                replayed=st["n_replayed"],
+                                torn_tail=st["torn_tail"],
+                                checkpoint_op_seq=st["checkpoint_op_seq"],
+                                op_seq=st["op_seq"],
+                                epoch=publisher.current.epoch)
+                check_epoch(engine, writer, r, "recovered")
+                todo = ops[writer.mutable.op_seq:hi]
+            for op in todo:
+                apply_op(writer, op)
+            if r == LC_ROUNDS:
+                # a slow reader keeps the previous epoch alive across the
+                # last publish: two epochs (and the base) on the card
+                slow_reader = writer.publisher.current
+            writer.commit()
+            out = check_epoch(engine, writer, r, f"round {r}")
+            if r == LC_FAULT_ROUND - 1:
+                good64 = out
+        two_epochs_mb = torch.cuda.memory_allocated() / 1e6
+        del slow_reader
+        peak = torch.cuda.max_memory_allocated()
+        phase_s = time.perf_counter() - t_phase
+        missing = [k for k in MAIN_PATH if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"lifecycle: kernels never launched: "
+                                 f"{missing}")
+
+        # the last epoch on the card is the writer's host mirrors
+        host = writer.mutable._host_index()
+        card = writer.publisher.current.index
+        for f in INDEX_FIELDS:
+            if not np.array_equal(getattr(card, f).cpu().numpy(),
+                                  np.asarray(getattr(host, f))):
+                raise AssertionError(f"lifecycle: card epoch field {f} "
+                                     f"differs from the mirrors")
+        ckpt_mb = _dir_mb(os.path.join(tmp, "snapshot"))
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+
+    # the shadow: every op, no WAL, no fault
+    t0 = time.perf_counter()
+    shadow = MutableIndex(index, seed=LC_SEED + 3, compact_threshold=1.0)
+    for op in ops:
+        apply_op(shadow, op)
+    shadow_s = time.perf_counter() - t0
+    mine, ref = writer.mutable._host_index(), shadow._host_index()
+    for f in INDEX_FIELDS:
+        if not np.array_equal(np.asarray(getattr(mine, f)),
+                              np.asarray(getattr(ref, f))):
+            raise AssertionError(f"lifecycle: recovered writer field {f} "
+                                 f"differs from the shadow")
+    m, s = writer.mutable, shadow
+    if not (m.op_seq == s.op_seq == len(ops) and m.scale == s.scale
+            and m._rng.bit_generator.state == s._rng.bit_generator.state
+            and m._loc == s._loc):
+        raise AssertionError("lifecycle: recovered writer state differs "
+                             "from the shadow")
+    reg = obs.registry.snapshot()
+    metrics = {k: v for k, v in reg.items()
+               if k.startswith(("index_", "wal_", "lifecycle_"))}
+    idx_bytes = index.nbytes()
+    log("lifecycle", rounds=LC_ROUNDS,
+        inserts=sum(op[0] == "insert" for op in ops),
+        deletes=sum(op[0] == "delete" for op in ops),
+        clips=int(reg.get("index_clipped_inserts_total", 0)),
+        compactions=sum(op[0] == "compact" for op in ops),
+        compaction_seconds=[round(t, 3) for t in times["compact"]],
+        compaction_calls=["writer", "recovery replay"][:len(
+            times["compact"])],
+        publish_ms=[round(t * 1e3, 2) for t in times["publish"]],
+        publish_gb_s=[round(idx_bytes / t / 1e9, 2)
+                      for t in times["publish"]],
+        index_mb=round(idx_bytes / 1e6, 1),
+        checkpoint_seconds=[round(t, 3) for t in times["checkpoint"]],
+        checkpoint_mb=round(ckpt_mb, 1), tmp_free_gb=round(free_gb, 1),
+        writer_init_seconds=round(t_writer, 3),
+        ops_build_seconds=round(t_ops, 3), fault=fault, recovery=recovery,
+        health=[list(t) for t in engine.health.transitions],
+        final_health=engine.health.state,
+        two_epochs_memory_allocated_mb=round(two_epochs_mb, 1),
+        max_memory_allocated_mb=round(peak / 1e6, 1),
+        fresh_ms_64_median=float(np.median(fresh_ms)),
+        shadow_seconds=round(shadow_s, 3), shadow_equal=True,
+        card_equals_mirrors=True, epochs=epochs, launches=launches,
+        metrics=metrics, seconds=round(phase_s, 3))
+    return {"launches": launches}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -745,7 +1186,7 @@ def superblock_plan_times(args, torch) -> dict:
                 shape=dict(n_q=a[2].shape[0], G=a[0].shape[0]))
 
 
-def phase_kernels(index, queries, captured, launches, sb, pl,
+def phase_kernels(index, queries, captured, launches, sb, pl, lc,
                   torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
@@ -784,7 +1225,8 @@ def phase_kernels(index, queries, captured, launches, sb, pl,
     def path_launches(name):
         return {"serve": launches[name],
                 "superblock": sb["launches"][name],
-                "pipelined": pl["launches"][name]}
+                "pipelined": pl["launches"][name],
+                "lifecycle": lc["launches"][name]}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -1136,10 +1578,13 @@ def main() -> int:
     card = phase_build(torch)
     phase_golden()
     geo, index, queries = scale_world()
-    engine, launches, captured = phase_serve(geo, index, queries, torch)
+    engine, launches, captured, fresh_ms = phase_serve(geo, index, queries,
+                                                       torch)
     sb = phase_superblock(geo, index, queries, torch)
     pl = phase_pipelined(geo, index, queries, torch)
-    rows = phase_kernels(index, queries, captured, launches, sb, pl, torch)
+    lc = phase_lifecycle(geo, index, queries, fresh_ms, torch)
+    rows = phase_kernels(index, queries, captured, launches, sb, pl, lc,
+                         torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

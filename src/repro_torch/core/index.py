@@ -7,8 +7,8 @@ moves the finished arrays to ``device`` at the end.
 ``build_index`` is the host-side (numpy) data-engineering step: it takes a
 sparse corpus + a cluster assignment and emits the padded, quantized
 :class:`ClusterIndex`. The packing core (:func:`pack_clusters`) is the one
-the reference's online write path re-packs through, so a later port of
-the lifecycle can share it unchanged.
+the online write path (``lifecycle/mutable.py``) re-packs through at
+compaction, as in the reference.
 """
 
 from __future__ import annotations
@@ -75,20 +75,23 @@ def group_superblocks(seg_max_collapsed: np.ndarray,
         return np.zeros((m,), np.int32)
     cap = -(-m // S)
 
-    def d2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-        return ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
-                - 2.0 * (a @ b.T))
+    # the rows' squared norms, the same reduction of the same array each
+    # call, so computing them once leaves every distance bit-identical
+    xx = (x * x).sum(1)[:, None]
+
+    def d2(b: np.ndarray) -> np.ndarray:
+        return xx + (b * b).sum(1)[None, :] - 2.0 * (x @ b.T)
 
     # farthest-point seeding from cluster 0
     seeds = [0]
-    dmin = d2(x, x[:1])[:, 0]
+    dmin = d2(x[:1])[:, 0]
     for _ in range(1, S):
         nxt = int(np.argmax(dmin))
         seeds.append(nxt)
-        dmin = np.minimum(dmin, d2(x, x[nxt:nxt + 1])[:, 0])
+        dmin = np.minimum(dmin, d2(x[nxt:nxt + 1])[:, 0])
     cent = x[np.asarray(seeds)].copy()
     for _ in range(4):
-        a = np.argmin(d2(x, cent), axis=1)
+        a = np.argmin(d2(cent), axis=1)
         for s in range(S):
             mem = x[a == s]
             if len(mem):
@@ -96,7 +99,7 @@ def group_superblocks(seg_max_collapsed: np.ndarray,
 
     # capacity-bounded greedy in confidence order (stable argsorts keep
     # every tie-break deterministic)
-    dist = d2(x, cent)
+    dist = d2(cent)
     pref = np.argsort(dist, axis=1, kind="stable")
     conf = np.argsort(dist.min(axis=1), kind="stable")
     super_of = np.full((m,), -1, np.int32)
@@ -222,13 +225,12 @@ def pack_clusters(
         out_ids[c, :nc] = doc_ids_in[members]
         doc_seg[c, :nc] = seg
 
-        # segmented maxima over quantized weights
-        for local in range(nc):
-            j = seg[local]
-            t = safe_tids[members[local]].astype(np.int64)
-            w = tw_u8[members[local]]
-            keep = t < V
-            np.maximum.at(seg_max[c, j], t[keep], w[keep])
+        # segmented maxima over quantized weights: one max-fold a cluster
+        # (a max is order-free, so this equals the reference's fold a doc)
+        t = safe_tids[members].astype(np.int64)
+        keep = t < V
+        j = np.broadcast_to(seg[:, None], t.shape)
+        np.maximum.at(seg_max[c], (j[keep], t[keep]), tw_u8[members][keep])
 
     # stored stacked layout: segment rows + the collapsed BoundSum row,
     # so the fused bounds GEMM never materializes a per-call copy

@@ -17,9 +17,12 @@ against the JAX reference, on the same numpy inputs:
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card (the wave planner, K3, on ``repro_torch.tools.plan_cases``; its plain
 version is ``plan_wave``'s op-by-op code, whose CPU parity is
-tests/test_torch_plan.py's), and the superblock walk and the pipelined
-engine on the card against the on-card plain path; they skip where there
-is none. This file must also collect on the
+tests/test_torch_plan.py's), the superblock walk and the pipelined
+engine on the card against the on-card plain path, and the lifecycle on
+the card (the churned golden world against the CPU path, a card snapshot
+a complete copy that later writes never reach, an engine over a
+publisher serving two epochs against the on-card plain path); they skip
+where there is none. This file must also collect on the
 machine with the card, which has no JAX: the reference is imported inside
 the tests that use it. Run the card tests with
 ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -749,6 +752,107 @@ def test_pipelined_engine_on_card(cuda):
         with swapped_wrappers(plain_versions):
             plain = retrieve_pipelined(index, queries, cfg, device=cuda)
         _assert_fields(got, plain, fuse)
+
+
+def _churned_golden(device):
+    """The golden world's churned writer (the fixture's stream) and the
+    six golden queries."""
+    from repro_torch.lifecycle import MutableIndex
+    from repro_torch.tools.golden_world import (WRITER_SEED, apply_op,
+                                                golden_churn_ops,
+                                                golden_world)
+    index, queries = golden_world(device)
+    mi = MutableIndex(index, seed=WRITER_SEED)
+    for op in golden_churn_ops():
+        apply_op(mi, op)
+    return mi, queries
+
+
+CHURNED_CONFIGS = [
+    dict(mu=1.0, eta=1.0, method="asc", engine="batched", block_q=4,
+         block_d=8),
+    dict(mu=0.8, eta=1.0, method="asc", engine="batched", block_q=4,
+         block_d=8),
+    dict(mu=1.0, eta=1.0, method="asc", engine="batched", superblocks=True,
+         block_q=4, block_d=8),
+    dict(mu=0.8, eta=1.0, method="asc", engine="per_query"),
+]
+
+
+@pytest.mark.gpu
+def test_churned_golden_on_card_equals_cpu_path(cuda):
+    """The churned golden world (tombstones, a dirty unsorted tail, a
+    compacted layout) published to the card: every TopK field equals the
+    CPU path's on the CPU snapshot of the same writer, and all four
+    kernels ran."""
+    from repro_torch.core.search import brute_force_topk
+    mi, queries = _churned_golden("cpu")
+    assert mi.unsorted_tail_fraction() > 0 and mi.n_deletes > 0
+    on_cpu, on_card = mi.snapshot("cpu"), mi.snapshot(cuda)
+    before = launch_counts()
+    for conf in CHURNED_CONFIGS:
+        cfg = SearchConfig(k=10, bounds_impl="gemm", **conf)
+        want = retrieve(on_cpu, queries, cfg, device="cpu")
+        got = retrieve(on_card, queries, cfg, device=cuda)
+        _assert_fields(got, want.__class__(
+            *(getattr(want, f).to(cuda) for f in TOPK_FIELDS)), conf)
+    bf = brute_force_topk(on_card, queries, 10, device=cuda)
+    assert torch.equal(bf.doc_ids.cpu(), brute_force_topk(
+        on_cpu, queries, 10, device="cpu").doc_ids)
+    after = launch_counts()
+    assert all(after[k] > before[k] for k in MAIN_PATH)
+
+
+@pytest.mark.gpu
+def test_card_snapshot_is_a_complete_copy(cuda):
+    """A snapshot on the card is complete when it returns and owns its
+    memory: later inserts, deletes and a requantizing compaction of the
+    writer never reach it."""
+    from repro_torch.core.types import INDEX_FIELDS
+    mi, _ = _churned_golden("cpu")
+    snap = mi.snapshot(cuda)
+    host = mi._host_index()
+    frozen = {f: torch.from_numpy(np.array(getattr(host, f)))
+              for f in INDEX_FIELDS}
+    for d in mi.live_ids()[:30]:
+        mi.delete(int(d))
+    for i in range(30):
+        mi.insert([i, i + 7], [0.5, 40.0])
+    mi.compact(requantize=True)
+    for f in INDEX_FIELDS:
+        t = getattr(snap, f)
+        assert t.device.type == "cuda", f
+        assert torch.equal(t.cpu(), frozen[f]), f
+
+
+@pytest.mark.gpu
+def test_engine_over_publisher_serves_epochs_on_card(cuda):
+    """A writer publishing to the card and an engine over its publisher:
+    each of two epochs (the second after churn) is served through the
+    kernels and equals the on-card plain path on the same epoch."""
+    from repro_torch.lifecycle import IndexWriter
+    from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.tools.golden_world import (WRITER_SEED, apply_op,
+                                                golden_churn_ops,
+                                                golden_world)
+    index, queries = golden_world(cuda)
+    writer = IndexWriter(index, seed=WRITER_SEED, device=cuda)
+    cfg = SearchConfig(k=10, mu=0.8, eta=1.0, engine="batched", block_q=4,
+                       block_d=8, bounds_impl="gemm")
+    eng = RetrievalEngine(writer.publisher, cfg, device=cuda)
+    ops = golden_churn_ops()
+    for epoch, (lo, hi) in enumerate([(0, 0), (0, len(ops))]):
+        for op in ops[lo:hi]:
+            apply_op(writer, op)
+        if hi:
+            writer.commit()
+        got = eng.search(queries)
+        assert eng.last_epoch == epoch
+        with swapped_wrappers(plain_versions):
+            want = retrieve(writer.publisher.current.index, queries, cfg,
+                            device=cuda)
+        _assert_fields(got, want, epoch)
+    assert writer.publisher.reader_counts() == {}
 
 
 def test_k2_phase_cuts_find_their_loops():
