@@ -84,8 +84,43 @@ nonzero and prints no result):
                superblock wave (G = 23; every superblock wave of a batch
                for the planner).
 
+  8. frontend — the streaming front-end (``serving/frontend.py``) over
+               the serve phase's engine, closed loop, max_batch 64, every
+               bucket warmed, its SLO and deadline 2.5x and 4x the warm
+               64-query batch ms it measures: single-query requests at
+               0.7x, 2x and 0.5x the capacity that implies (64 / batch
+               ms), then four lone ones, submitted from the main thread to
+               ``start()``'s pump thread. Gates: conservation, no dispatch
+               failure, every future done when ``shutdown`` returns, every
+               served row equal to its recorded dispatch, and at least 8
+               dispatches (buckets below 4 and degraded ones among them)
+               replayed after the thread is joined equal to the on-card
+               plain path. Reports served q/s, end-to-end and queue
+               percentiles, batch sizes, shedding, the ladder and launches;
+  9. cluster — ``dense_rep_projection`` (dim 96), ``lloyd_kmeans`` (k =
+               512, 8 iterations) and ``balanced_assign`` (capacity d_pad)
+               on the card over the scale world's 1.1M docs, timed, with
+               peak memory: every doc placed once (also in the index built
+               from the assignment), no cluster over capacity, the inertia
+               not raised; on a 65,536-doc subsample the card's assignment
+               equals the CPU port's on every row whose two nearest
+               distances differ by more than the two devices' rounding
+               (ties counted), and the rounds on the same distances at a
+               tight capacity equal exactly. Reports the clusters a
+               64-query batch scores on the k-means index beside the
+               topic-chunked one;
+ 10. cli     — ``python -m repro_torch.launch.serve`` on the saved scale
+               world (``--load-dir``, ``--frontend closed``, ``--churn
+               4096``, ``--durable-dir``, a checkpoint every 4 commits,
+               the front-end's measured capacity and SLO), SIGTERM after
+               the first periodic checkpoint: exit 0, the drain line before
+               the final-checkpoint line, the metrics dump's front-end
+               counters balanced; a restart on the same directory recovers
+               at that checkpoint's op_seq and serves two batches.
+
+Phases 8–10 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
-(``path_launches``: serve, superblock, pipelined, lifecycle).
+(``path_launches``: serve, superblock, pipelined, lifecycle, frontend).
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -100,6 +135,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -465,13 +501,14 @@ def scale_world():
     t_build = time.perf_counter() - t0
     queries, _ = make_queries(spec, 8 * 64 + 3 * 2 + 64 + 16 + 8 + 64,
                               doc_topic, seed=SEED + 3)
+    fe_queries, _ = make_queries(spec, FE_QUERIES, doc_topic, seed=FE_SEED)
     log("scale_world", n_docs=n_docs, m=index.m, vocab=index.vocab,
         d_pad=index.d_pad, t_pad=index.t_pad, q_pad=queries.q_pad,
         n_seg=index.n_seg, mean_nnz=float(docs.mask.sum(1).float().mean()),
         index_mb=round(index.nbytes() / 1e6, 1),
         doc_tids_mb=round(index.doc_tids.numel() * 2 / 1e6, 1),
         seconds_corpus=round(t_corpus, 1), seconds_build=round(t_build, 1))
-    return geo, index, queries
+    return geo, index, queries, docs, fe_queries
 
 
 def _slice(queries, lo, hi):
@@ -1142,6 +1179,462 @@ def phase_lifecycle(geo, index, queries, fresh_ms, torch) -> dict:
     return {"launches": launches}
 
 
+# frontend phase: single-query requests at 0.7x, 2x and 0.5x the capacity
+# the phase measures (64 / the warm 64-query batch ms), then lone requests
+# each sent after the last was served (buckets of 1: the per-query route)
+FE_STEPS = ((0.7, 1000), (2.0, 500), (0.5, 300))
+FE_TRICKLE = 4
+FE_QUERIES = sum(n for _, n in FE_STEPS) + FE_TRICKLE
+FE_REPLAYS = 8          # recorded dispatches held against the plain path
+FE_SEED = SEED + 20
+
+
+def _family_total(snap: dict, name: str) -> float:
+    v = snap.get(name, 0.0)
+    return float(sum(v.values())) if isinstance(v, dict) else float(v)
+
+
+def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
+    """The streaming front-end over the serve phase's engine (batches of 1
+    and 2 take the per-query route, K4; 4 and up K1, the planner and K2),
+    fed single-query requests from the main thread while ``start()``'s
+    pump thread dispatches. Every served row must equal its row of the
+    recorded dispatch, and recorded dispatches, replayed after the pump
+    thread is joined, must equal the on-card plain path."""
+    from repro_torch.core.search import retrieve
+    from repro_torch.kernels import (MAIN_PATH, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.serving.frontend import (FrontendConfig, ServedResult,
+                                              StreamingFrontend, query_rows)
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    rows = list(query_rows(fe_queries))
+    keys = [r.tids[0].numpy().tobytes() for r in rows]
+    if len(set(keys)) != len(keys):
+        raise AssertionError("frontend: the request queries repeat")
+    # capacity from the warm 64-query batch
+    q64 = _slice(fe_queries, 0, 64)
+    warm = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        engine.search(q64)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    batch_ms = float(np.median(warm[1:]))
+    capacity = 64 / (batch_ms / 1e3)
+    fcfg = FrontendConfig(max_batch=64, max_queue=256,
+                          default_deadline_ms=4.0 * batch_ms,
+                          slo_p99_ms=2.5 * batch_ms, closed_loop=True)
+    fe = StreamingFrontend(engine, fcfg)
+    t0 = time.perf_counter()
+    fe.warmup(rows[0])
+    warmup_s = time.perf_counter() - t0
+
+    dispatches = []
+    search = engine.search
+
+    def recorder(qb, mu_eta=None, budget_frac=None):
+        t0 = time.perf_counter()
+        out = search(qb, mu_eta=mu_eta, budget_frac=budget_frac)
+        dispatches.append(dict(qb=qb, mu_eta=mu_eta, budget_frac=budget_frac,
+                               out=out, ms=(time.perf_counter() - t0) * 1e3))
+        return out
+    engine.search = recorder
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    futs, i = [], 0
+    try:
+        fe.start()
+        t_start = time.perf_counter()
+        due, step_s = 0.0, []
+        for mult, n in FE_STEPS:
+            t_step = time.perf_counter()
+            for _ in range(n):
+                due += 1.0 / (mult * capacity)
+                wait = t_start + due - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                futs.append(fe.submit(rows[i]))
+                i += 1
+            step_s.append(time.perf_counter() - t_step)
+        for _ in range(FE_TRICKLE):
+            futs.append(fe.submit(rows[i]))
+            i += 1
+            futs[-1].result(timeout=60)
+        traffic_s = time.perf_counter() - t_start
+        drained = fe.shutdown()
+    finally:
+        engine.search = search
+    launches = launch_counts()
+    if fe._thread is not None:
+        raise AssertionError("frontend: the pump thread was not joined")
+    if not all(f.done() for f in futs):
+        raise AssertionError("frontend: a future is not done after "
+                             "shutdown")
+    snap = fe.registry.snapshot()
+    cons = fe.conservation()
+    failures = _family_total(snap, "frontend_dispatch_failures_total")
+    if not cons["balanced"] or failures:
+        raise AssertionError(f"frontend: conservation {cons}, dispatch "
+                             f"failures {failures}")
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"frontend: kernels never launched: {missing}")
+
+    # every served row equals its row of the recorded dispatch
+    where = {}
+    for d, rec in enumerate(dispatches):
+        for r in range(rec["qb"].n_queries):
+            where.setdefault(rec["qb"].tids[r].numpy().tobytes(), (d, r))
+    outcomes: dict = {}
+    for key, f in zip(keys, futs):
+        res = f.result(timeout=0)
+        kind = type(res).__name__
+        outcomes[kind] = outcomes.get(kind, 0) + 1
+        if not isinstance(res, ServedResult):
+            continue
+        d, r = where[key]
+        rec = dispatches[d]
+        if not (torch.equal(res.doc_ids, rec["out"].doc_ids[r].cpu())
+                and torch.equal(res.scores, rec["out"].scores[r].cpu())):
+            raise AssertionError(f"frontend: a served row differs from "
+                                 f"its dispatch {d} row {r}")
+        me = rec["mu_eta"][r]
+        if (float(me[0]), float(me[1])) != (np.float32(res.mu),
+                                            np.float32(res.eta)):
+            raise AssertionError("frontend: served (mu, eta) differs from "
+                                 "the dispatch's")
+
+    # replay: buckets below 4, mixed-level and degraded batches, then
+    # evenly spaced others, through the on-card plain path. A dispatch
+    # serves each row at the deeper of its admission stamp and the
+    # current level, so a batch mixes levels only after the ladder steps
+    # back up; while it only steps down, degraded batches stand in
+    def levels(rec):
+        return {tuple(x) for x in rec["mu_eta"].tolist()}
+    small = [d for d, rec in enumerate(dispatches) if rec["qb"].n_queries < 4]
+    mixed = [d for d, rec in enumerate(dispatches) if len(levels(rec)) > 1]
+    full = (engine.cfg.mu, engine.cfg.eta)
+    degraded = [d for d, rec in enumerate(dispatches)
+                if rec["budget_frac"] is not None
+                or any(lv != tuple(np.float32(full)) for lv in levels(rec))]
+    pick = sorted(set(small[:2] + mixed[:2] + degraded[:2]))
+    for d in np.linspace(0, len(dispatches) - 1, FE_REPLAYS).astype(int):
+        if len(pick) >= FE_REPLAYS:
+            break
+        if int(d) not in pick:
+            pick.append(int(d))
+    pick.sort()
+    if len(pick) < FE_REPLAYS or not small:
+        raise AssertionError(f"frontend: {len(dispatches)} dispatches, "
+                             f"{len(small)} below 4: too few to replay")
+    ladder_moved = fe.controller.level_max > 0
+    if ladder_moved and not set(pick) & set(degraded):
+        raise AssertionError("frontend: the ladder moved but no degraded "
+                             "batch was replayed")
+    budget0 = engine._budget()
+    with swapped_wrappers(plain_versions):
+        for d in pick:
+            rec = dispatches[d]
+            b = budget0
+            if rec["budget_frac"] is not None:
+                b = max(8, int(min(b, index.m) * rec["budget_frac"]))
+            want = retrieve(index, rec["qb"], engine.cfg, budget=b,
+                            mu_eta=rec["mu_eta"], device=DEVICE)
+            check_close(rec["out"], want, f"frontend dispatch {d} "
+                        f"({rec['qb'].n_queries} queries) vs plain")
+
+    req = snap.get("serve_request_latency_ms", {})
+    queue = snap.get("frontend_time_in_queue_ms", {})
+    sizes = snap.get("frontend_batch_size", {})
+    served = cons["served"]
+    log("frontend", batch_ms_64=round(batch_ms, 3),
+        capacity_qps=round(capacity, 1),
+        slo_p99_ms=round(fcfg.slo_p99_ms, 3),
+        deadline_ms=round(fcfg.default_deadline_ms, 3),
+        steps=[dict(x_capacity=m, requests=n, seconds=round(t, 4),
+                    offered_qps=round(n / t, 1))
+               for (m, n), t in zip(FE_STEPS, step_s)],
+        trickle=FE_TRICKLE, warmup_seconds=round(warmup_s, 3),
+        traffic_seconds=round(traffic_s, 4),
+        served_qps=round(served / traffic_s, 1), conservation=cons,
+        outcomes=outcomes, drained=drained,
+        e2e_p50_ms=req.get("p50"), e2e_p99_ms=req.get("p99"),
+        e2e_windowed_p50_ms=engine.stats.windowed_p(50),
+        e2e_windowed_p99_ms=engine.stats.windowed_p(99),
+        queue_p50_ms=queue.get("p50"), queue_p99_ms=queue.get("p99"),
+        queue_mean_ms=queue.get("mean"),
+        batch_sizes=sizes.get("buckets"), dispatches=len(dispatches),
+        dispatch_ms_median=float(np.median([r["ms"] for r in dispatches])),
+        shed=snap.get("frontend_shed_total", {}),
+        deadline_met=snap.get("frontend_deadline_met_total"),
+        deadline_missed=snap.get("frontend_deadline_missed_total"),
+        deadline_exceeded=snap.get("frontend_deadline_exceeded_total"),
+        served_by_level=snap.get("frontend_served_total", {}),
+        ladder_max_level=fe.controller.level_max,
+        ladder_moves=snap.get("frontend_degradation_transitions_total", {}),
+        health=[list(t) for t in engine.health.transitions
+                if t[3] == "overload"],
+        mixed_dispatches=len(mixed), degraded_dispatches=len(degraded),
+        replayed=[dict(dispatch=d, n_q=dispatches[d]["qb"].n_queries,
+                       levels=len(levels(dispatches[d])),
+                       budget_frac=dispatches[d]["budget_frac"])
+                  for d in pick],
+        dispatch_failures=failures, launches=launches)
+    return {"launches": launches, "batch_ms": batch_ms,
+            "capacity": capacity}
+
+
+# cluster phase: k-means over the scale world's projection, then the
+# balanced assignment at the index's d_pad
+CL_DIM, CL_ITERS = 96, 8
+CL_SUB = 65_536          # the card-vs-CPU subsample
+CL_SUB_TIGHT = 160       # 1.25x its mean cluster: many spill rounds
+
+
+def phase_cluster(geo, index, queries, docs, torch) -> dict:
+    """The index-build tooling on the card at the scale world's size:
+    ``dense_rep_projection`` (dim 96), ``lloyd_kmeans`` (k = 512, 8
+    iterations) and ``balanced_assign`` (capacity d_pad), each timed; an
+    index built from the assignment serves a 64-query batch beside the
+    topic-chunked index. On a subsample the card's balanced assignment is
+    held against the CPU port's."""
+    from repro_torch.core import clustering as tc
+    from repro_torch.core.index import build_index
+    from repro_torch.core.search import retrieve
+
+    k, cap, n = M_CLUSTERS, geo.d_pad, docs.n_docs
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 1e6
+    rep = timed("projection", lambda: tc.dense_rep_projection(
+        docs, dim=CL_DIM, device=DEVICE))
+    # lloyd_kmeans's own draw of its initial centers, for the inertia gate
+    init = rep[torch.randperm(n, generator=torch.Generator().manual_seed(
+        0))[:k].to(DEVICE)]
+    centers, nearest = timed("lloyd_kmeans", lambda: tc.lloyd_kmeans(
+        torch.Generator().manual_seed(0), rep, k=k, iters=CL_ITERS))
+    assign = timed("balanced_assign",
+                   lambda: tc.balanced_assign(rep, centers, capacity=cap))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+
+    def inertia(c):
+        return float(tc.sq_distances(rep, c).min(dim=1).values.double().sum())
+    in0, in1 = inertia(init), inertia(centers)
+    counts = torch.bincount(assign.long(), minlength=k)
+    if not (assign.shape == (n,) and int(assign.min()) >= 0
+            and int(assign.max()) < k and int(counts.sum()) == n):
+        raise AssertionError("cluster: the assignment does not place "
+                             "every doc in one cluster")
+    if int(counts.max()) > cap:
+        raise AssertionError(f"cluster: a cluster holds {int(counts.max())} "
+                             f"docs, over capacity {cap}")
+    if not in1 <= in0:
+        raise AssertionError(f"cluster: Lloyd raised the inertia "
+                             f"{in0} -> {in1}")
+    natural = torch.bincount(nearest, minlength=k)
+
+    # the index built from it: every doc placed once
+    t0 = time.perf_counter()
+    km = build_index(docs, assign.cpu().numpy(), m=k, n_seg=geo.n_seg,
+                     d_pad=cap, seed=SEED + 2, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    live = km.doc_ids[km.doc_mask]
+    if not torch.equal(torch.sort(live).values,
+                       torch.arange(n, dtype=live.dtype, device=DEVICE)):
+        raise AssertionError("cluster: the built index does not hold every "
+                             "doc exactly once")
+    cfg = _walk_cfg(geo, engine="auto")
+    q64 = _slice(queries, 0, 64)
+    scored = {}
+    for name, idx in (("kmeans", km), ("topic_chunks", index)):
+        out = retrieve(idx, q64, cfg, device=DEVICE)
+        scored[name] = dict(
+            clusters_mean=float(out.n_scored_clusters.float().mean()),
+            docs_mean=float(out.n_scored_docs.float().mean()),
+            walked_tiles=int(out.n_walked_tiles.max()),
+            scored_tiles=int(out.n_scored_tiles.max()))
+    del km
+
+    # the card against the CPU port on a subsample
+    sub = rep[torch.randperm(n, generator=torch.Generator().manual_seed(
+        1))[:CL_SUB].to(DEVICE)]
+    got = tc.balanced_assign(sub, centers, capacity=cap).cpu()
+    sub_c, cen_c = sub.cpu(), centers.cpu()
+    want = tc.balanced_assign(sub_c, cen_c, capacity=cap)
+    d2_card = tc.sq_distances(sub, centers)
+    d2_cpu = tc.sq_distances(sub_c, cen_c)
+    rounding = (d2_card.cpu() - d2_cpu).abs().max(dim=1).values
+    near = torch.topk(d2_cpu, 2, dim=1, largest=False).values
+    tie = (near[:, 1] - near[:, 0]) <= 2 * rounding
+    if int(torch.bincount(want.long(), minlength=k).max()) >= cap:
+        raise AssertionError("cluster: a subsample cluster filled")
+    if not torch.equal(got[~tie], want[~tie]):
+        raise AssertionError(f"cluster: the card's balanced_assign differs "
+                             f"from the CPU port's on "
+                             f"{int((got != want)[~tie].sum())} non-tie rows")
+    tight = tc._balanced_rounds(d2_card, CL_SUB_TIGHT).cpu()
+    if not torch.equal(tight, tc._balanced_rounds(d2_card.cpu(),
+                                                  CL_SUB_TIGHT)):
+        raise AssertionError("cluster: the card's balanced rounds differ "
+                             "from the CPU's on the same distances")
+    log("cluster", n_docs=n, k=k, dim=CL_DIM, iters=CL_ITERS, capacity=cap,
+        ms=ms, peak_memory_allocated_mb=round(peak_mb, 1),
+        base_memory_allocated_mb=round(base_mb, 1),
+        inertia_initial=in0, inertia_final=in1,
+        natural_sizes=dict(max=int(natural.max()), min=int(natural.min()),
+                           over_capacity=int((natural > cap).sum())),
+        balanced_sizes=dict(max=int(counts.max()), min=int(counts.min())),
+        spilled_docs=int((assign.long() != nearest).sum()),
+        build_seconds=round(build_s, 3), scored_64=scored,
+        subsample=dict(n=CL_SUB, capacity=cap, tie_rows=int(tie.sum()),
+                       differing_rows=int((got != want).sum()),
+                       max_distance_rounding=float(rounding.max()),
+                       tight_capacity=CL_SUB_TIGHT,
+                       tight_spilled=int((tight.long()
+                                          != d2_cpu.argmin(1)).sum()),
+                       tight_rounds_equal=True))
+    return {"scored_64": scored}
+
+
+CLI_CHURN = 4096
+CLI_CHECKPOINT_EVERY = 4
+
+
+def _cli_lines(out: str, prefix: str) -> list[int]:
+    return [i for i, ln in enumerate(out.splitlines())
+            if ln.startswith(prefix)]
+
+
+def phase_cli(index, fe, torch) -> None:
+    """``python -m repro_torch.launch.serve`` as a user starts it, on the
+    saved scale world: the closed-loop front-end, churn through a durable
+    write plane, SIGTERM after the first periodic checkpoint (the drain,
+    then the final checkpoint, exit 0), then a restart on the same
+    directory that recovers at that checkpoint and serves."""
+    import signal
+    import tempfile
+
+    from repro_torch.lifecycle import read_manifest, save_index
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_index(os.path.join(tmp, "index"), index, epoch=0)
+        save_s = time.perf_counter() - t0
+        durable = os.path.join(tmp, "durable")
+        args = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--device", DEVICE, "--load-dir", os.path.join(tmp, "index"),
+                "--vocab", str(index.vocab), "--n-docs", "2000",
+                "--frontend", "closed", "--churn", str(CLI_CHURN),
+                "--durable-dir", durable,
+                "--checkpoint-every", str(CLI_CHECKPOINT_EVERY),
+                "--batch-size", "64",
+                "--arrival-qps", f"{0.7 * fe['capacity']:.1f}",
+                "--slo-p99-ms", f"{2.5 * fe['batch_ms']:.3f}",
+                "--deadline-ms", f"{4.0 * fe['batch_ms']:.3f}"]
+
+        def epoch_on_disk() -> int:
+            try:
+                return int(read_manifest(os.path.join(durable, "snapshot"),
+                                         verify=False)["epoch"])
+            except (OSError, ValueError, KeyError, RuntimeError):
+                return -1
+
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            args + ["--batches", "1000", "--metrics-json",
+                    os.path.join(tmp, "m1.json")], env=env, cwd=tmp,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            while epoch_on_disk() < CLI_CHECKPOINT_EVERY:
+                if proc.poll() is not None:
+                    raise AssertionError(f"cli: the launcher exited "
+                                         f"early:\n{proc.stdout.read()}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("cli: no periodic checkpoint "
+                                         "within 300 s")
+                time.sleep(0.1)
+            up_s = time.perf_counter() - t0
+            t_sig = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            out1, _ = proc.communicate(timeout=300)
+            exit_s = time.perf_counter() - t_sig
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"cli: exit code {proc.returncode}:\n"
+                                 f"{out1}")
+        drain = _cli_lines(out1, "[serve] frontend drained")
+        final = _cli_lines(out1, "[serve] final checkpoint")
+        if not (drain and final and drain[0] < final[0]):
+            raise AssertionError(f"cli: no drain line before the final "
+                                 f"checkpoint line:\n{out1}")
+        m1 = json.loads(Path(tmp, "m1.json").read_text())
+        fe_counts = {name: _family_total(m1, name) for name in (
+            "frontend_requests_total", "frontend_served_total",
+            "frontend_shed_total", "frontend_deadline_exceeded_total")}
+        if fe_counts["frontend_requests_total"] != sum(
+                v for k, v in fe_counts.items()
+                if k != "frontend_requests_total"):
+            raise AssertionError(f"cli: front-end counters do not balance: "
+                                 f"{fe_counts}")
+        manifest = read_manifest(os.path.join(durable, "snapshot"))
+        op_seq = int(manifest["extra"]["writer"]["op_seq"])
+
+        t0 = time.perf_counter()
+        again = subprocess.run(
+            args + ["--batches", "2", "--metrics-json",
+                    os.path.join(tmp, "m2.json")], env=env, cwd=tmp,
+            capture_output=True, text=True, timeout=300)
+        restart_s = time.perf_counter() - t0
+        out2 = again.stdout
+        if again.returncode != 0:
+            raise AssertionError(f"cli restart: exit code "
+                                 f"{again.returncode}:\n{out2}"
+                                 f"{again.stderr}")
+        rec = [ln for ln in out2.splitlines()
+               if ln.startswith("[serve] recovered write plane")]
+        if not (rec and f"'op_seq': {op_seq}," in rec[0]
+                and f"'checkpoint_op_seq': {op_seq}," in rec[0]):
+            raise AssertionError(f"cli restart: did not recover at op_seq "
+                                 f"{op_seq}:\n{out2}")
+        m2 = json.loads(Path(tmp, "m2.json").read_text())
+        if not m2.get("serve_queries_total"):
+            raise AssertionError("cli restart: served nothing")
+
+        def summary(out):
+            return [ln for ln in out.splitlines()
+                    if ln.startswith(("[serve] frontend drained",
+                                      "[serve] final checkpoint",
+                                      "[serve] interrupted",
+                                      "[serve] recovered write plane"))
+                    or re.match(r"\[serve\] \d+ queries in", ln)
+                    or ln.startswith(("[serve] funnel",
+                                      "[serve] lifecycle"))]
+        log("cli", save_index_seconds=round(save_s, 3),
+            first_checkpoint_after_s=round(up_s, 3),
+            sigterm_to_exit_s=round(exit_s, 3),
+            restart_seconds=round(restart_s, 3), recovered_op_seq=op_seq,
+            frontend_counters=fe_counts,
+            epoch_at_exit=m1.get("lifecycle_epoch"),
+            queries_first=m1.get("serve_queries_total"),
+            queries_restart=m2.get("serve_queries_total"),
+            recovery=rec[0], first_run=summary(out1),
+            restart=summary(out2))
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -1186,7 +1679,7 @@ def superblock_plan_times(args, torch) -> dict:
                 shape=dict(n_q=a[2].shape[0], G=a[0].shape[0]))
 
 
-def phase_kernels(index, queries, captured, launches, sb, pl, lc,
+def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
                   torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
@@ -1226,7 +1719,8 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc,
         return {"serve": launches[name],
                 "superblock": sb["launches"][name],
                 "pipelined": pl["launches"][name],
-                "lifecycle": lc["launches"][name]}
+                "lifecycle": lc["launches"][name],
+                "frontend": fe["launches"][name]}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -1563,6 +2057,7 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc,
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1577,17 +2072,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_build(torch)
     phase_golden()
-    geo, index, queries = scale_world()
+    geo, index, queries, docs, fe_queries = scale_world()
     engine, launches, captured, fresh_ms = phase_serve(geo, index, queries,
                                                        torch)
     sb = phase_superblock(geo, index, queries, torch)
     pl = phase_pipelined(geo, index, queries, torch)
     lc = phase_lifecycle(geo, index, queries, fresh_ms, torch)
-    rows = phase_kernels(index, queries, captured, launches, sb, pl, lc,
+    fe = phase_frontend(geo, engine, index, fe_queries, torch)
+    phase_cluster(geo, index, queries, docs, torch)
+    del docs
+    phase_cli(index, fe, torch)
+    rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
                          torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)
+    log("total", seconds=round(time.perf_counter() - t_script, 1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,9 +53,8 @@ class ServeStats:
     bumps the query, request and time counters, as the reference does, so
     the exposition text of both packages agrees for the same calls.
     ``p(q)`` answers "the batch latency the q-th percentile query
-    experienced", exactly (not bucketed) over the last ``window`` batches;
-    the cumulative, bucketed view is the registry's histogram.
-    ``latencies_ms`` is the window of per-query means.
+    experienced" from that all-time histogram, at bucket resolution, as
+    the reference does. ``latencies_ms`` is the window of per-query means.
 
     Snapshot GC metrics (mirrored from the publisher after every search
     when serving a live index): ``epoch_reader_counts`` is the live pin
@@ -71,8 +70,6 @@ class ServeStats:
         self.window = window
         self.latencies_ms: collections.deque = collections.deque(
             maxlen=window)                     # per-query means
-        self._batches: collections.deque = collections.deque(
-            maxlen=window)                     # (batch ms, n_queries)
         self._hist = self.registry.histogram(
             "serve_batch_latency_ms",
             "batch latency, weighted by the batch's query count",
@@ -112,18 +109,14 @@ class ServeStats:
         return self._time.value * 1e3 / max(self.n_queries, 1)
 
     def p(self, q: float) -> float:
-        """Query-weighted percentile of recent batch latency (ms)."""
-        if not self._batches:
-            return 0.0
-        ms, w = map(np.asarray, zip(*self._batches))
-        order = np.argsort(ms, kind="stable")
-        cum = np.cumsum(w[order])
-        return float(ms[order][np.searchsorted(cum, q / 100.0 * cum[-1])])
+        """Weighted percentile of *batch* latency ms: the batch latency
+        the q-th percentile query experienced (histogram-bucket
+        resolution)."""
+        return self._hist.quantile(q)
 
     def record(self, n_queries: int, elapsed_s: float) -> float:
         batch_ms = elapsed_s * 1e3
         self._hist.observe(batch_ms, weight=max(n_queries, 1))
-        self._batches.append((batch_ms, max(n_queries, 1)))
         self._queries.inc(n_queries)
         self._requests.inc()
         self._time.inc(elapsed_s)

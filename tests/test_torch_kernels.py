@@ -21,8 +21,9 @@ tests/test_torch_plan.py's), the superblock walk and the pipelined
 engine on the card against the on-card plain path, and the lifecycle on
 the card (the churned golden world against the CPU path, a card snapshot
 a complete copy that later writes never reach, an engine over a
-publisher serving two epochs against the on-card plain path); they skip
-where there is none. This file must also collect on the
+publisher serving two epochs against the on-card plain path), the
+streaming front-end served from its pump thread, and ``balanced_assign``
+on the card against the CPU port; they skip where there is none. This file must also collect on the
 machine with the card, which has no JAX: the reference is imported inside
 the tests that use it. Run the card tests with
 ``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -853,6 +854,87 @@ def test_engine_over_publisher_serves_epochs_on_card(cuda):
                             device=cuda)
         _assert_fields(got, want, epoch)
     assert writer.publisher.reader_counts() == {}
+
+
+@pytest.mark.gpu
+def test_frontend_pump_thread_on_card(cuda):
+    """The streaming front-end served through ``start()``'s pump thread,
+    which launches the kernels from a thread of its own: every served row
+    equals its dispatch, every dispatch equals a direct ``engine.search``
+    of the same batch on the caller's thread, and buckets below 4 (K4)
+    and of 4 (K1, the planner, K2) both ran."""
+    from repro_torch.serving.engine import RetrievalEngine
+    from repro_torch.serving.frontend import (FrontendConfig, ServedResult,
+                                              StreamingFrontend, query_rows)
+    from repro_torch.tools.golden_world import GOLDEN_SPEC, golden_world
+    index, _ = golden_world(cuda)
+    _, topic = make_corpus(GOLDEN_SPEC)
+    queries, _ = make_queries(GOLDEN_SPEC, 19, topic, seed=4242)
+    cfg = SearchConfig(k=10, mu=0.8, eta=1.0, block_q=4, block_d=8,
+                       bounds_impl="gemm")
+    eng = RetrievalEngine(index, cfg, device=cuda)
+    rows = list(query_rows(queries))
+    assert len({r.tids.numpy().tobytes() for r in rows}) == len(rows)
+    fe = StreamingFrontend(eng, FrontendConfig(
+        max_batch=4, max_queue=64, default_deadline_ms=1e4,
+        max_linger_ms=2.0))
+    fe.warmup(rows[0])
+    dispatches = []
+    search = eng.search
+
+    def recorder(qb, mu_eta=None, budget_frac=None):
+        out = search(qb, mu_eta=mu_eta, budget_frac=budget_frac)
+        dispatches.append((qb, mu_eta, budget_frac, out))
+        return out
+    eng.search = recorder
+    before = launch_counts()
+    fe.start()
+    futs = [fe.submit(rows[0])]
+    assert isinstance(futs[0].result(timeout=60), ServedResult)  # bucket 1
+    futs += [fe.submit(r) for r in rows[1:]]
+    outs = [f.result(timeout=60) for f in futs]
+    fe.shutdown(drain_deadline_ms=1e4)
+    after = launch_counts()
+    eng.search = search
+    assert fe._thread is None and all(f.done() for f in futs)
+    assert fe.conservation()["balanced"]
+    assert all(isinstance(o, ServedResult) for o in outs)
+    assert all(after[k] > before[k] for k in MAIN_PATH)
+    assert min(qb.n_queries for qb, *_ in dispatches) < 4
+    assert max(qb.n_queries for qb, *_ in dispatches) == 4
+    for qb, mu_eta, frac, out in dispatches:
+        again = search(qb, mu_eta=mu_eta, budget_frac=frac)
+        _assert_fields(again, out, qb.n_queries)
+    # each served row is a row of its dispatch (the queries are distinct)
+    served = {}
+    for qb, _, _, out in dispatches:
+        for i in range(qb.n_queries):
+            served.setdefault(qb.tids[i].numpy().tobytes(),
+                              (out.doc_ids[i].cpu(), out.scores[i].cpu()))
+    for r, o in zip(rows, outs):
+        ids, scores = served[r.tids[0].numpy().tobytes()]
+        assert torch.equal(o.doc_ids, ids) and torch.equal(o.scores, scores)
+
+
+@pytest.mark.gpu
+def test_balanced_assign_on_card_equals_cpu(cuda):
+    """``balanced_assign`` on the card against the CPU port: the rounds
+    exactly, given the same distances (a tight capacity, many spills); and
+    the whole function on every row whose two nearest distances differ by
+    more than fp32 rounding, where no cluster fills."""
+    from repro_torch.core import clustering as tc
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((4096, 48), generator=g)
+    centers = torch.randn((64, 48), generator=g)
+    d2 = tc.sq_distances(x.to(cuda), centers.to(cuda))
+    tight = tc._balanced_rounds(d2, capacity=70)
+    assert torch.equal(tight.cpu(), tc._balanced_rounds(d2.cpu(), 70))
+    assert int(torch.bincount(tight, minlength=64).max()) <= 70
+    got = tc.balanced_assign(x.to(cuda), centers.to(cuda), 4096).cpu()
+    want = tc.balanced_assign(x, centers, 4096)
+    near = torch.topk(tc.sq_distances(x, centers), 2, largest=False).values
+    tie = (near[:, 1] - near[:, 0]) <= 1e-5 * near[:, 1].abs().clamp(min=1)
+    assert torch.equal(got[~tie], want[~tie])
 
 
 def test_k2_phase_cuts_find_their_loops():
