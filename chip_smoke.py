@@ -90,19 +90,24 @@ nonzero and prints no result):
                64-query batch ms it measures: single-query requests at
                0.7x, 2x and 0.5x the capacity that implies (64 / batch
                ms), then four lone ones, submitted from the main thread to
-               ``start()``'s pump thread. Gates: conservation, no dispatch
-               failure, every future done when ``shutdown`` returns, every
-               served row equal to its recorded dispatch, and at least 8
-               dispatches (buckets below 4 and degraded ones among them)
-               replayed after the thread is joined equal to the on-card
-               plain path. Reports served q/s, end-to-end and queue
-               percentiles, batch sizes, shedding, the ladder and launches;
+               ``start()``'s pump thread; then, with the pump idle, eight
+               rows half stamped at the ladder's level (at least 1) and
+               half at level 0, which one dispatch serves at mixed levels.
+               Gates: conservation, no dispatch failure, the pump thread
+               joined and every future done when ``shutdown`` returns,
+               every served row equal to its recorded dispatch, and at
+               least 8 dispatches (buckets below 4, a mixed-level one and
+               degraded ones among them) replayed after the thread is
+               joined equal to the on-card plain path. Reports served
+               q/s, end-to-end and queue percentiles, batch sizes,
+               shedding, the ladder and launches;
   9. cluster — ``dense_rep_projection`` (dim 96), ``lloyd_kmeans`` (k =
                512, 8 iterations) and ``balanced_assign`` (capacity d_pad)
                on the card over the scale world's 1.1M docs, timed, with
                peak memory: every doc placed once (also in the index built
                from the assignment), no cluster over capacity, the inertia
-               not raised; on a 65,536-doc subsample the card's assignment
+               not raised, a second build from the same seed bit for bit
+               the same; on a 65,536-doc subsample the card's assignment
                equals the CPU port's on every row whose two nearest
                distances differ by more than the two devices' rounding
                (ties counted), and the rounds on the same distances at a
@@ -115,8 +120,10 @@ nonzero and prints no result):
                the front-end's measured capacity and SLO), SIGTERM after
                the first periodic checkpoint: exit 0, the drain line before
                the final-checkpoint line, the metrics dump's front-end
-               counters balanced; a restart on the same directory recovers
-               at that checkpoint's op_seq and serves two batches.
+               counters balanced with requests served and no dispatch
+               failed; a restart on the same directory recovers at that
+               checkpoint's op_seq and serves two batches, held to the
+               same front-end gates.
 
 Phases 8–10 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
@@ -1184,7 +1191,10 @@ def phase_lifecycle(geo, index, queries, fresh_ms, torch) -> dict:
 # each sent after the last was served (buckets of 1: the per-query route)
 FE_STEPS = ((0.7, 1000), (2.0, 500), (0.5, 300))
 FE_TRICKLE = 4
-FE_QUERIES = sum(n for _, n in FE_STEPS) + FE_TRICKLE
+FE_MIXED = 8            # rows of the batch that mixes ladder levels
+FE_MIXED_TRIES = 3
+FE_QUERIES = (sum(n for _, n in FE_STEPS) + FE_TRICKLE
+              + FE_MIXED * FE_MIXED_TRIES)
 FE_REPLAYS = 8          # recorded dispatches held against the plain path
 FE_SEED = SEED + 20
 
@@ -1238,10 +1248,27 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
         dispatches.append(dict(qb=qb, mu_eta=mu_eta, budget_frac=budget_frac,
                                out=out, ms=(time.perf_counter() - t0) * 1e3))
         return out
+    on_batch = fe.controller.on_batch
+    evals = []
+
+    def counted_on_batch(*a, **kw):
+        on_batch(*a, **kw)
+        evals.append(1)
+
+    def wait_idle():
+        # every recorded dispatch has passed its controller evaluation
+        t0 = time.perf_counter()
+        while fe.queue_depth or len(evals) < len(dispatches):
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("frontend: the pump thread is stuck")
+            time.sleep(1e-3)
+
     engine.search = recorder
+    fe.controller.on_batch = counted_on_batch
     torch.cuda.synchronize()
     reset_launch_counts()
     futs, i = [], 0
+    mixed_tries = 0
     try:
         fe.start()
         t_start = time.perf_counter()
@@ -1261,11 +1288,37 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
             i += 1
             futs[-1].result(timeout=60)
         traffic_s = time.perf_counter() - t_start
+        wait_idle()
+        served_traffic = fe.conservation()["served"]
+        # a batch that mixes levels: with the pump idle, half its rows
+        # are stamped at the ladder's level (at least 1), then the
+        # controller is put back to 0 and the rest stamped there; the
+        # dispatch serves each row at the deeper of its stamp and 0
+        deep = max(fe.controller.level, 1)
+        while mixed_tries < FE_MIXED_TRIES:
+            mixed_tries += 1
+            wait_idle()
+            fe.controller.level = deep
+            batch = []
+            for h in range(FE_MIXED):
+                if h == FE_MIXED // 2:
+                    fe.controller.level = 0
+                batch.append(fe.submit(rows[i]))
+                i += 1
+            futs += batch
+            for f in batch:
+                f.result(timeout=60)
+            wait_idle()
+            if any(len({tuple(x) for x in rec["mu_eta"].tolist()}) > 1
+                   for rec in dispatches[-2:]):
+                break
+        thread = fe._thread
         drained = fe.shutdown()
     finally:
         engine.search = search
+        fe.controller.on_batch = on_batch
     launches = launch_counts()
-    if fe._thread is not None:
+    if thread is None or thread.is_alive():
         raise AssertionError("frontend: the pump thread was not joined")
     if not all(f.done() for f in futs):
         raise AssertionError("frontend: a future is not done after "
@@ -1305,10 +1358,7 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
                                  "the dispatch's")
 
     # replay: buckets below 4, mixed-level and degraded batches, then
-    # evenly spaced others, through the on-card plain path. A dispatch
-    # serves each row at the deeper of its admission stamp and the
-    # current level, so a batch mixes levels only after the ladder steps
-    # back up; while it only steps down, degraded batches stand in
+    # evenly spaced others, through the on-card plain path
     def levels(rec):
         return {tuple(x) for x in rec["mu_eta"].tolist()}
     small = [d for d, rec in enumerate(dispatches) if rec["qb"].n_queries < 4]
@@ -1327,8 +1377,10 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
     if len(pick) < FE_REPLAYS or not small:
         raise AssertionError(f"frontend: {len(dispatches)} dispatches, "
                              f"{len(small)} below 4: too few to replay")
-    ladder_moved = fe.controller.level_max > 0
-    if ladder_moved and not set(pick) & set(degraded):
+    if not mixed:
+        raise AssertionError(f"frontend: no dispatch mixed ladder levels "
+                             f"in {mixed_tries} tries")
+    if fe.controller.level_max > 0 and not set(pick) & set(degraded):
         raise AssertionError("frontend: the ladder moved but no degraded "
                              "batch was replayed")
     budget0 = engine._budget()
@@ -1346,7 +1398,6 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
     req = snap.get("serve_request_latency_ms", {})
     queue = snap.get("frontend_time_in_queue_ms", {})
     sizes = snap.get("frontend_batch_size", {})
-    served = cons["served"]
     log("frontend", batch_ms_64=round(batch_ms, 3),
         capacity_qps=round(capacity, 1),
         slo_p99_ms=round(fcfg.slo_p99_ms, 3),
@@ -1356,7 +1407,7 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
                for (m, n), t in zip(FE_STEPS, step_s)],
         trickle=FE_TRICKLE, warmup_seconds=round(warmup_s, 3),
         traffic_seconds=round(traffic_s, 4),
-        served_qps=round(served / traffic_s, 1), conservation=cons,
+        served_qps=round(served_traffic / traffic_s, 1), conservation=cons,
         outcomes=outcomes, drained=drained,
         e2e_p50_ms=req.get("p50"), e2e_p99_ms=req.get("p99"),
         e2e_windowed_p50_ms=engine.stats.windowed_p(50),
@@ -1374,7 +1425,10 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
         ladder_moves=snap.get("frontend_degradation_transitions_total", {}),
         health=[list(t) for t in engine.health.transitions
                 if t[3] == "overload"],
-        mixed_dispatches=len(mixed), degraded_dispatches=len(degraded),
+        mixed_dispatches=len(mixed), mixed_tries=mixed_tries,
+        mixed_levels=sorted({lv for d in mixed
+                             for lv in levels(dispatches[d])}),
+        degraded_dispatches=len(degraded),
         replayed=[dict(dispatch=d, n_q=dispatches[d]["qb"].n_queries,
                        levels=len(levels(dispatches[d])),
                        budget_frac=dispatches[d]["budget_frac"])
@@ -1396,8 +1450,9 @@ def phase_cluster(geo, index, queries, docs, torch) -> dict:
     ``dense_rep_projection`` (dim 96), ``lloyd_kmeans`` (k = 512, 8
     iterations) and ``balanced_assign`` (capacity d_pad), each timed; an
     index built from the assignment serves a 64-query batch beside the
-    topic-chunked index. On a subsample the card's balanced assignment is
-    held against the CPU port's."""
+    topic-chunked index. A second build from the same seed must give the
+    same bits. On a subsample the card's balanced assignment is held
+    against the CPU port's."""
     from repro_torch.core import clustering as tc
     from repro_torch.core.index import build_index
     from repro_torch.core.search import retrieve
@@ -1442,6 +1497,22 @@ def phase_cluster(geo, index, queries, docs, torch) -> dict:
         raise AssertionError(f"cluster: Lloyd raised the inertia "
                              f"{in0} -> {in1}")
     natural = torch.bincount(nearest, minlength=k)
+    # one seed, one index: a second build gives the same bits
+    t0 = time.perf_counter()
+    rep2 = tc.dense_rep_projection(docs, dim=CL_DIM, device=DEVICE)
+    centers2, nearest2 = tc.lloyd_kmeans(torch.Generator().manual_seed(0),
+                                         rep2, k=k, iters=CL_ITERS)
+    assign2 = tc.balanced_assign(rep2, centers2, capacity=cap)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    for what, a, b in (("projection", rep, rep2),
+                       ("centroids", centers, centers2),
+                       ("nearest", nearest, nearest2),
+                       ("assignment", assign, assign2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"cluster: a second build from the same "
+                                 f"seed gives another {what}")
+    del rep2, centers2, nearest2, assign2
 
     # the index built from it: every doc placed once
     t0 = time.perf_counter()
@@ -1496,6 +1567,7 @@ def phase_cluster(geo, index, queries, docs, torch) -> dict:
         balanced_sizes=dict(max=int(counts.max()), min=int(counts.min())),
         spilled_docs=int((assign.long() != nearest).sum()),
         build_seconds=round(build_s, 3), scored_64=scored,
+        second_build_identical=True, second_build_seconds=round(rebuild_s, 3),
         subsample=dict(n=CL_SUB, capacity=cap, tie_rows=int(tie.sum()),
                        differing_rows=int((got != want).sum()),
                        max_distance_rounding=float(rounding.max()),
@@ -1513,6 +1585,30 @@ CLI_CHECKPOINT_EVERY = 4
 def _cli_lines(out: str, prefix: str) -> list[int]:
     return [i for i, ln in enumerate(out.splitlines())
             if ln.startswith(prefix)]
+
+
+def _cli_frontend(metrics_path, out: str, what: str) -> dict:
+    """The launcher's front-end counters from its metrics dump: they must
+    balance, no dispatch may have failed (the front-end turns a failure
+    into a typed rejection, which would otherwise pass as shedding), and
+    some request must have been served."""
+    m = json.loads(Path(metrics_path).read_text())
+    counts = {name: _family_total(m, name) for name in (
+        "frontend_requests_total", "frontend_served_total",
+        "frontend_shed_total", "frontend_deadline_exceeded_total",
+        "frontend_dispatch_failures_total")}
+    if counts["frontend_requests_total"] != (
+            counts["frontend_served_total"] + counts["frontend_shed_total"]
+            + counts["frontend_deadline_exceeded_total"]):
+        raise AssertionError(f"{what}: front-end counters do not balance: "
+                             f"{counts}")
+    if (counts["frontend_dispatch_failures_total"]
+            or "[frontend] dispatch failed" in out):
+        raise AssertionError(f"{what}: a dispatch failed:\n{out}")
+    if not counts["frontend_served_total"]:
+        raise AssertionError(f"{what}: the front-end served nothing: "
+                             f"{counts}")
+    return {"metrics": m, "counts": counts}
 
 
 def phase_cli(index, fe, torch) -> None:
@@ -1581,15 +1677,8 @@ def phase_cli(index, fe, torch) -> None:
         if not (drain and final and drain[0] < final[0]):
             raise AssertionError(f"cli: no drain line before the final "
                                  f"checkpoint line:\n{out1}")
-        m1 = json.loads(Path(tmp, "m1.json").read_text())
-        fe_counts = {name: _family_total(m1, name) for name in (
-            "frontend_requests_total", "frontend_served_total",
-            "frontend_shed_total", "frontend_deadline_exceeded_total")}
-        if fe_counts["frontend_requests_total"] != sum(
-                v for k, v in fe_counts.items()
-                if k != "frontend_requests_total"):
-            raise AssertionError(f"cli: front-end counters do not balance: "
-                                 f"{fe_counts}")
+        first = _cli_frontend(Path(tmp, "m1.json"), out1, "cli")
+        m1 = first["metrics"]
         manifest = read_manifest(os.path.join(durable, "snapshot"))
         op_seq = int(manifest["extra"]["writer"]["op_seq"])
 
@@ -1610,9 +1699,8 @@ def phase_cli(index, fe, torch) -> None:
                 and f"'checkpoint_op_seq': {op_seq}," in rec[0]):
             raise AssertionError(f"cli restart: did not recover at op_seq "
                                  f"{op_seq}:\n{out2}")
-        m2 = json.loads(Path(tmp, "m2.json").read_text())
-        if not m2.get("serve_queries_total"):
-            raise AssertionError("cli restart: served nothing")
+        second = _cli_frontend(Path(tmp, "m2.json"), out2, "cli restart")
+        m2 = second["metrics"]
 
         def summary(out):
             return [ln for ln in out.splitlines()
@@ -1627,7 +1715,8 @@ def phase_cli(index, fe, torch) -> None:
             first_checkpoint_after_s=round(up_s, 3),
             sigterm_to_exit_s=round(exit_s, 3),
             restart_seconds=round(restart_s, 3), recovered_op_seq=op_seq,
-            frontend_counters=fe_counts,
+            frontend_counters=first["counts"],
+            frontend_counters_restart=second["counts"],
             epoch_at_exit=m1.get("lifecycle_epoch"),
             queries_first=m1.get("serve_queries_total"),
             queries_restart=m2.get("serve_queries_total"),

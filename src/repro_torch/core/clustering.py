@@ -4,7 +4,8 @@ The paper clusters documents with k-means over *dense counterparts* of the
 learned sparse vectors. This module holds:
 
   * ``lloyd_kmeans``       — Lloyd's iterations: the assignment distance
-    matrix is one GEMM, the centroid updates are segment sums;
+    matrix is one GEMM, the centroid sums a one-hot GEMM (deterministic
+    on the card);
   * ``balanced_assign``    — capacity-bounded assignment so every cluster
     fits the padded ``d_pad`` slab of the index layout;
   * dense representation builders: max / mean / CLS pooling, and the
@@ -71,17 +72,32 @@ def kmeans_plus_plus_lite(generator: torch.Generator | None,
     return centers
 
 
+_SUM_ROWS = 1 << 17      # rows of x per one-hot GEMM in _cluster_sums
+
+
+def _cluster_sums(x: torch.Tensor, assign: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """(k, d) sums of x's rows by cluster, the same bits on every run: a
+    one-hot GEMM over fixed row chunks, added in order (float atomics,
+    as ``index_add_`` uses on the card, would make k-means differ from
+    run to run for one seed)."""
+    ids = torch.arange(k, device=x.device)[:, None]
+    sums = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    for lo in range(0, x.shape[0], _SUM_ROWS):
+        hot = (assign[None, lo:lo + _SUM_ROWS] == ids).to(x.dtype)
+        sums += hot @ x[lo:lo + _SUM_ROWS]
+    return sums
+
+
 def _lloyd(x: torch.Tensor, centers: torch.Tensor,
            iters: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's iterations from given initial centers; returns (centroids,
     assignment). An empty cluster keeps its center."""
     k = centers.shape[0]
-    ones = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         assign = torch.argmin(sq_distances(x, centers), dim=-1)
-        sums = torch.zeros_like(centers).index_add_(0, assign, x)
-        cnt = torch.zeros((k,), dtype=x.dtype,
-                          device=x.device).index_add_(0, assign, ones)
+        sums = _cluster_sums(x, assign, k)
+        cnt = torch.bincount(assign, minlength=k).to(x.dtype)
         centers = torch.where(cnt[:, None] > 0,
                               sums / torch.clamp(cnt, min=1)[:, None],
                               centers)

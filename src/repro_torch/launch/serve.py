@@ -11,8 +11,8 @@ Device options:
   --device D      cuda (default) or cpu. With cuda and no card the
                   launcher exits with an error; it never falls back to
                   the CPU. cpu runs the kernels' plain PyTorch versions.
-  --bounds-impl   gemm (default: the segment-bound kernel on the card) or
-                  gather (the JAX package's default route).
+                  Cluster bounds take the segment-bound GEMM route, the
+                  one that runs its kernel on the card.
 
 Lifecycle options:
   --churn N       between batches, delete+insert N docs through the
@@ -85,10 +85,6 @@ def _parse(argv=None):
                     choices=["auto", "per_query", "batched", "pipelined"],
                     help="search engine; pipelined = device wave "
                          "planning with plan/execute dispatch loop")
-    ap.add_argument("--bounds-impl", type=str, default="gemm",
-                    choices=("gemm", "gather"),
-                    help="cluster bounds: gemm = the segment-bound kernel "
-                         "on the card; gather = the JAX package's default")
     ap.add_argument("--device", type=str, default="cuda",
                     choices=("cuda", "cpu"),
                     help="where the index lives and every search runs")
@@ -363,7 +359,7 @@ def main(argv=None) -> None:
           f"{n_dev} device(s)")
 
     cfg = SearchConfig(k=args.k, mu=args.mu, eta=args.eta,
-                       engine=args.engine, bounds_impl=args.bounds_impl)
+                       engine=args.engine, bounds_impl="gemm")
 
     writer = None
     if args.churn > 0:

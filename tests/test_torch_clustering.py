@@ -257,6 +257,22 @@ def test_lloyd_draws_are_reproducible():
     assert torch.equal(a[1], b[1])
 
 
+def test_cluster_sums_over_chunks(monkeypatch):
+    """Lloyd's centroid sums, taken over several row chunks, equal the
+    scatter-add sums within fp32 rounding, and equal themselves bit for
+    bit on a second call."""
+    monkeypatch.setattr(tc, "_SUM_ROWS", 64)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((300, 12), generator=g)
+    assign = torch.randint(0, 7, (300,), generator=g)
+    assign[assign == 5] = 6                  # cluster 5 stays empty
+    got = tc._cluster_sums(x, assign, 7)
+    want = torch.zeros((7, 12)).index_add_(0, assign, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[5].any()
+    assert torch.equal(got, tc._cluster_sums(x, assign, 7))
+
+
 def test_balanced_assign_respects_capacity():
     x = torch.randn((200, 8), generator=torch.Generator().manual_seed(2))
     centers = torch.randn((10, 8), generator=torch.Generator().manual_seed(3))
