@@ -124,10 +124,40 @@ nonzero and prints no result):
                failed; a restart on the same directory recovers at that
                checkpoint's op_seq and serves two batches, held to the
                same front-end gates.
+ 11. dist    — sharded retrieval (``distributed_retrieve``) by 4 ranks on
+               the one card over gloo, a (2, 2) ("data", "model") mesh:
+               two cluster shards of 256 clusters, two query halves. The
+               serve phase's first four 64-query batches, one 64-query
+               batch in safe mode and one 2-query batch (a local batch of
+               1, the per-query route), each counted from zero on every
+               rank: every rank's result equals rank 0's and the same
+               merge done in one process over per-shard searches on the
+               kernel path, bit for bit; against that merge on the on-card
+               plain path, ids by the tie rule and scores to rtol 1e-5,
+               counters exactly except where a shard's own kernel-path
+               and plain-path searches already differ (fp32 near ties at
+               an admission threshold; listed); the safe batch's scores
+               equal single-device ``retrieve``; every
+               rank launched K1, the planner and K2, and K4 on the 2-query
+               batch. Then ``python -m repro_torch.launch.serve --devices
+               4`` on the world the cli phase saved: exit 0, data 2 /
+               model 2 and its summary. Reports rank 0's batch ms beside
+               the serve phase's, the backend, each rank's peak memory;
+ 12. encoder — ``SparseEncConfig()`` at its published widths (V 30522,
+               d 256, 4 layers, 4 heads, d_ff 1024; 10,994,490
+               parameters) with random weights from a seeded generator:
+               64 queries of 64 tokens (half cut short) encoded on the
+               card equal the CPU's (rtol 1e-4, atol 1e-5), and so do
+               ``to_sparse_docs(t_pad=32)``'s weights (ids only swapped
+               within near ties); the encoded queries, served by the serve
+               phase's engine, equal the on-card plain path. Encode ms at
+               batch 64 and 128, docs/s over 64 batches of 128 × 64
+               tokens, peak memory.
 
-Phases 8–10 run after the lifecycle phase and before the kernels phase.
+Phases 8–12 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
-(``path_launches``: serve, superblock, pipelined, lifecycle, frontend).
+(``path_launches``: serve, superblock, pipelined, lifecycle, frontend,
+dist (one count a rank), encoder).
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -351,6 +381,170 @@ def check_identical(a, b, what: str) -> None:
     for f in TOPK_FIELDS:
         if not torch.equal(getattr(a, f), getattr(b, f)):
             raise AssertionError(f"{what}: {f} differs")
+
+
+# the counters each query of a batched walk counts for itself; the others
+# are batch-level (one value replicated over the batch) or constants
+PER_QUERY = ("n_scored_docs", "n_scored_clusters", "n_scored_segments")
+
+
+@contextlib.contextmanager
+def recorded_decisions(log: list):
+    """Record every batched walk's decisions: one entry a walk (its
+    suffix maxima, from ``_walk_order``) holding each wave's admission
+    inputs and outputs (from ``_admission``) and the theta each wave's
+    merge leaves (from ``_merge_wave``). The per-query engine makes its
+    decisions inline and records nothing."""
+    import repro_torch.core.search as search_mod
+    admission, walk_order = search_mod._admission, search_mod._walk_order
+    merge_wave = search_mod._merge_wave
+
+    def walk(order_key, n_pos):
+        out = walk_order(order_key, n_pos)
+        log.append({"suffix": out[2], "waves": [], "theta_end": []})
+        return out
+
+    def merge(top_scores, top_ids, scores, theta, ids_flat, k):
+        out = merge_wave(top_scores, top_ids, scores, theta, ids_flat, k)
+        log[-1]["theta_end"].append(out[0][:, k - 1])
+        return out
+
+    def admit(cfg, **kw):
+        out = admission(cfg, **kw)
+        log[-1]["waves"].append(dict(
+            asc=cfg.method == "asc", admit=out[0], seg_admit=out[1],
+            **{k: kw[k] for k in ("glive", "done", "theta", "max_s_w",
+                                  "avg_s_w", "key_w", "seg_b_w", "mu",
+                                  "eta")}))
+        return out
+
+    search_mod._walk_order, search_mod._admission = walk, admit
+    search_mod._merge_wave = merge
+    try:
+        yield log
+    finally:
+        search_mod._walk_order, search_mod._admission = walk_order, admission
+        search_mod._merge_wave = merge_wave
+
+
+def _near(lhs, rhs) -> bool:
+    """A decision ``lhs <= rhs`` (or ``>``) within the inputs' rounding:
+    both sides come from fp32 sums (K1's bounds, K2's scores) that the
+    kernel and its plain version take in other orders (RTOL each)."""
+    return abs(float(lhs) - float(rhs)) <= 2 * RTOL * abs(float(rhs)) + ATOL
+
+
+def _pruned(x: dict, q: int):
+    """Query q's prune test over the wave's slots, recomputed from the
+    recorded inputs exactly as ``_admission`` computes it."""
+    th = x["theta"][q]
+    if x["asc"]:
+        return ((x["max_s_w"][q] <= th / x["mu"][q])
+                & (x["avg_s_w"][q] <= th / x["eta"][q]))
+    return x["key_w"][q] <= th / x["mu"][q]
+
+
+def first_divergence(k_walk: dict, p_walk: dict, q: int) -> str | None:
+    """Where query ``q``'s decisions first differ between the kernel-path
+    and the plain-path walk (None if never). Raises unless every decision
+    that differs at that wave is a near tie in both walks: the early exit
+    taken after the previous wave (a walk that stopped had every query
+    done), a live slot's prune test, a segment's admission in a cluster
+    both admit. Admission can differ only through those (the budget
+    horizon and clamp count earlier decisions, equal until here). Past the
+    first divergence the walks may differ as its consequence."""
+    import torch
+    walks = (k_walk, p_walk)
+    g = k_walk["waves"][0]["admit"].shape[1]
+    for w in range(max(len(k_walk["waves"]), len(p_walk["waves"]))):
+        done = [bool(x["waves"][w]["done"][q]) if w < len(x["waves"])
+                else True for x in walks]
+        if done[0] != done[1]:
+            nxt = min(w * g, k_walk["suffix"].shape[1] - 1)
+            x0 = k_walk["waves"][0]
+            div = (x0["eta"] if x0["asc"] else x0["mu"])[q]
+            if not all(_near(x["suffix"][q, nxt],
+                             x["theta_end"][w - 1][q] / div) for x in walks):
+                raise AssertionError(f"query {q}: the early exit after wave "
+                                     f"{w - 1} differs beyond a near tie")
+            return f"the early exit after wave {w - 1}"
+        if done[0]:
+            continue
+        a, b = (x["waves"][w] for x in walks)
+        th = [x["theta"][q] for x in (a, b)]
+        div = [(x["eta"] if x["asc"] else x["mu"])[q] for x in (a, b)]
+        d_prune = ((_pruned(a, q) != _pruned(b, q)) & a["glive"]
+                   ).nonzero().flatten().tolist()
+        both = a["admit"][q] & b["admit"][q]
+        d_seg = ((a["seg_admit"][q] != b["seg_admit"][q]) & both[:, None]
+                 ).nonzero().tolist()
+        if not d_prune and not d_seg:
+            if not torch.equal(a["admit"][q], b["admit"][q]):
+                raise AssertionError(f"query {q}: admission differs at wave "
+                                     f"{w} with every test equal")
+            continue
+        for j in d_prune:
+            if a["asc"]:
+                ok = all(_near(x["max_s_w"][q, j], t / x["mu"][q])
+                         or _near(x["avg_s_w"][q, j], t / x["eta"][q])
+                         for x, t in zip((a, b), th))
+            else:
+                ok = all(_near(x["key_w"][q, j], t / x["mu"][q])
+                         for x, t in zip((a, b), th))
+            if not ok:
+                raise AssertionError(f"query {q}: the prune test of slot {j} "
+                                     f"at wave {w} differs beyond a near tie")
+        for j, sg in d_seg:
+            if not all(_near(x["seg_b_w"][q, j, sg], t / v)
+                       for x, t, v in zip((a, b), th, div)):
+                raise AssertionError(f"query {q}: segment {sg} of slot {j} "
+                                     f"at wave {w} differs beyond a near tie")
+        return (f"wave {w}: prune tests of slots {d_prune}, segments "
+                f"{d_seg}")
+    return None
+
+
+def check_audited(got, want, k_log: list, p_log: list, rows: list,
+                  what: str) -> list[dict]:
+    """Kernel path ``got`` against plain path ``want``: scores position by
+    position to RTOL, ids by the tie rule of ``check_topk``, every counter
+    exactly, except where the two paths' recorded decisions first diverge
+    at a near tie (``first_divergence``): then that query's own counters,
+    and the batch-level counters of its walk, may differ. ``rows[i]``
+    lists the (walk, row) pairs output row i was merged from. Returns the
+    counters that differed, each with the divergence behind it."""
+    import torch
+    if len(k_log) != len(p_log):
+        raise AssertionError(f"{what}: {len(k_log)} walks against "
+                             f"{len(p_log)}")
+    if not torch.allclose(got.scores, want.scores, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: scores differ beyond rtol {RTOL}")
+    check_topk(want.doc_ids.cpu(), want.scores.cpu(), got.doc_ids.cpu(),
+               got.scores.cpu(), what)
+    seen: dict = {}
+
+    def diverged(c: int, r: int):
+        if (c, r) not in seen:
+            seen[c, r] = first_divergence(k_log[c], p_log[c], r)
+        return seen[c, r]
+
+    flips = []
+    for f in COUNTERS:
+        a, b = getattr(got, f).cpu(), getattr(want, f).cpu()
+        for i in (a != b).nonzero().flatten().tolist():
+            walks = {c for c, _ in rows[i]}
+            why = ([diverged(c, r) for c, r in rows[i]] if f in PER_QUERY
+                   else [diverged(c, r) for c in walks
+                         for r in range(k_log[c]["waves"][0]["admit"]
+                                        .shape[0])])
+            why = [x for x in why if x]
+            if not why:
+                raise AssertionError(f"{what}: counter {f} of row {i} "
+                                     f"differs ({int(a[i])} against "
+                                     f"{int(b[i])}) with no divergence")
+            flips.append({"row": i, "counter": f, "kernel": int(a[i]),
+                          "plain": int(b[i]), "near_tie": why[0]})
+    return flips
 
 
 # ---------------------------------------------------------------------------
@@ -1384,16 +1578,26 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
         raise AssertionError("frontend: the ladder moved but no degraded "
                              "batch was replayed")
     budget0 = engine._budget()
-    with swapped_wrappers(plain_versions):
-        for d in pick:
-            rec = dispatches[d]
-            b = budget0
-            if rec["budget_frac"] is not None:
-                b = max(8, int(min(b, index.m) * rec["budget_frac"]))
+    flips = []
+    for d in pick:
+        rec = dispatches[d]
+        b = budget0
+        if rec["budget_frac"] is not None:
+            b = max(8, int(min(b, index.m) * rec["budget_frac"]))
+        what = f"frontend dispatch {d} ({rec['qb'].n_queries} queries)"
+        k_log, p_log = [], []
+        with recorded_decisions(k_log):
+            kern = retrieve(index, rec["qb"], engine.cfg, budget=b,
+                            mu_eta=rec["mu_eta"], device=DEVICE)
+        check_identical(rec["out"], kern,
+                        f"{what} vs its replay on the kernel path")
+        with swapped_wrappers(plain_versions), recorded_decisions(p_log):
             want = retrieve(index, rec["qb"], engine.cfg, budget=b,
                             mu_eta=rec["mu_eta"], device=DEVICE)
-            check_close(rec["out"], want, f"frontend dispatch {d} "
-                        f"({rec['qb'].n_queries} queries) vs plain")
+        rows = [[(0, i)] if k_log else []
+                for i in range(kern.doc_ids.shape[0])]
+        flips += [{"dispatch": d, **f} for f in check_audited(
+            kern, want, k_log, p_log, rows, f"{what} vs plain")]
 
     req = snap.get("serve_request_latency_ms", {})
     queue = snap.get("frontend_time_in_queue_ms", {})
@@ -1415,6 +1619,7 @@ def phase_frontend(geo, engine, index, fe_queries, torch) -> dict:
         queue_p50_ms=queue.get("p50"), queue_p99_ms=queue.get("p99"),
         queue_mean_ms=queue.get("mean"),
         batch_sizes=sizes.get("buckets"), dispatches=len(dispatches),
+        counter_flips_vs_plain=flips,
         dispatch_ms_median=float(np.median([r["ms"] for r in dispatches])),
         shed=snap.get("frontend_shed_total", {}),
         deadline_met=snap.get("frontend_deadline_met_total"),
@@ -1611,12 +1816,13 @@ def _cli_frontend(metrics_path, out: str, what: str) -> dict:
     return {"metrics": m, "counts": counts}
 
 
-def phase_cli(index, fe, torch) -> None:
+def phase_cli(index, fe, saved, torch) -> None:
     """``python -m repro_torch.launch.serve`` as a user starts it, on the
     saved scale world: the closed-loop front-end, churn through a durable
     write plane, SIGTERM after the first periodic checkpoint (the drain,
     then the final checkpoint, exit 0), then a restart on the same
-    directory that recovers at that checkpoint and serves."""
+    directory that recovers at that checkpoint and serves. The world is
+    saved to ``saved``, where the dist phase loads it again."""
     import signal
     import tempfile
 
@@ -1625,11 +1831,11 @@ def phase_cli(index, fe, torch) -> None:
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        save_index(os.path.join(tmp, "index"), index, epoch=0)
+        save_index(saved, index, epoch=0)
         save_s = time.perf_counter() - t0
         durable = os.path.join(tmp, "durable")
         args = [sys.executable, "-m", "repro_torch.launch.serve",
-                "--device", DEVICE, "--load-dir", os.path.join(tmp, "index"),
+                "--device", DEVICE, "--load-dir", saved,
                 "--vocab", str(index.vocab), "--n-docs", "2000",
                 "--frontend", "closed", "--churn", str(CLI_CHURN),
                 "--durable-dir", durable,
@@ -1724,6 +1930,375 @@ def phase_cli(index, fe, torch) -> None:
             restart=summary(out2))
 
 
+# ---------------------------------------------------------------------------
+# dist: sharded retrieval, 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_SHAPE = (2, 2)                 # ("data", "model")
+DIST_WORLD = DIST_SHAPE[0] * DIST_SHAPE[1]
+# the fields the reference replicates over the cluster shards
+DIST_REPLICATED = ("scale", "super_members", "super_max_stacked")
+# kernels every rank must launch on a batch
+DIST_NEED = {"b0": ("segment_bound_gemm", "plan_wave", "score_queue"),
+             "q2": ("segment_bound_gemm", "score_clusters")}
+
+
+def dist_batches(geo, queries) -> list[tuple[str, object, dict]]:
+    """(name, queries, SearchConfig keywords): the serve phase's first
+    four 64-query batches at (mu, eta), its fifth in safe mode, its first
+    2-query batch (a local batch of 1: the per-query route)."""
+    base = dict(k=geo.k, method="asc", group_size=geo.group_size,
+                bounds_impl="gemm", engine="auto")
+    out = [(f"b{i}", _slice(queries, 64 * i, 64 * (i + 1)),
+            dict(base, mu=geo.mu, eta=geo.eta)) for i in range(4)]
+    out.append(("safe", _slice(queries, 256, 320),
+                dict(base, mu=1.0, eta=1.0)))
+    out.append(("q2", _slice(queries, 512, 514),
+                dict(base, mu=geo.mu, eta=geo.eta)))
+    return out
+
+
+def _dist_rank(rank: int, staged: str, batches: list, device_type: str):
+    """One rank of the dist phase: its cluster shard on the card, an
+    untimed warm-up (a 64- and a 2-query batch), then each batch timed on
+    the host clock, its launches counted from zero."""
+    import torch
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.types import TOPK_FIELDS, QueryBatch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.serving.engine import (distributed_retrieve,
+                                            shard_index, staged_index)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = rank_device(rank, device_type)
+    mesh = make_host_mesh(DIST_SHAPE, ("data", "model"), dev.type)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    local = shard_index(staged_index(staged), mesh, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(arrays, cfg_kw):
+        q = QueryBatch(*(torch.from_numpy(a) for a in arrays),
+                       vocab=local.vocab)
+        return distributed_retrieve(local, q, SearchConfig(**cfg_kw), mesh)
+
+    for name, arrays, cfg_kw in batches:
+        if name in ("b0", "q2"):
+            run(arrays, cfg_kw)
+    sync()
+    setup_s = time.perf_counter() - t0
+    done = []
+    for name, arrays, cfg_kw in batches:
+        sync()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        out = run(arrays, cfg_kw)
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        done.append({"name": name, "ms": ms, "launches": launch_counts(),
+                     "fields": {f: getattr(out, f).cpu().numpy()
+                                for f in TOPK_FIELDS}})
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    return {"rank": rank, "coord": list(mesh.get_coordinate()),
+            "local_m": local.m, "setup_s": setup_s, "batches": done,
+            "peak_mb": peak / 1e6}
+
+
+def dist_reference(index, q, cfg, plain: bool):
+    """The sharded search done in one process, by hand: each query half
+    searched on each cluster shard (views of the card's index) on the
+    kernel path or, with ``plain``, the on-card plain path, in the order
+    (half, shard); the shards' top-k merged by a stable top-k over their
+    concatenation, seven counters summed and the two superblock counters
+    taken as they are, the halves stacked."""
+    import torch
+    from repro_torch.core.search import retrieve, topk_stable
+    from repro_torch.core.types import INDEX_FIELDS, ClusterIndex, TopK
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    n_data, n_model = DIST_SHAPE
+    size = index.m // n_data
+    shards = [ClusterIndex(
+        **{f: (getattr(index, f) if f in DIST_REPLICATED
+               else getattr(index, f)[s * size:(s + 1) * size])
+           for f in INDEX_FIELDS}, vocab=index.vocab, n_seg=index.n_seg)
+        for s in range(n_data)]
+    n_local = q.n_queries // n_model
+    halves = []
+    with (swapped_wrappers(plain_versions) if plain
+          else contextlib.nullcontext()):
+        for h in range(n_model):
+            qh = _slice(q, h * n_local, (h + 1) * n_local)
+            part = [retrieve(sh, qh, cfg, device=DEVICE) for sh in shards]
+            scores, pos = topk_stable(
+                torch.cat([p.scores for p in part], 1), cfg.k)
+            ids = torch.gather(torch.cat([p.doc_ids for p in part], 1), 1,
+                               pos)
+            counters = ([sum(getattr(p, f) for p in part)
+                         for f in COUNTERS[:7]]
+                        + [getattr(part[0], f) for f in COUNTERS[7:]])
+            halves.append([ids, scores, *counters])
+    return TopK(*(torch.cat(col) for col in zip(*halves)))
+
+
+def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
+    """Sharded retrieval on the one card: 4 ranks over gloo on a (2, 2)
+    ("data", "model") mesh, two cluster shards of m / 2 and two query
+    halves; every batch against ``dist_reference`` on the kernel path (bit
+    for bit) and on the plain path (``check_audited``), the safe batch
+    against single-device retrieval, the launches of every rank; then the
+    launcher's ``--devices 4`` on the saved world."""
+    import tempfile
+
+    from repro_torch.core.search import SearchConfig, retrieve
+    from repro_torch.core.types import TOPK_FIELDS, TopK
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.engine import stage_index
+
+    t_phase = time.perf_counter()
+    batches = dist_batches(geo, queries)
+    arrays = [(name, tuple(getattr(q, f).numpy() for f in ("tids", "tw",
+                                                            "mask")), kw)
+              for name, q, kw in batches]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as staged:
+        stage_index(index, staged)
+        stage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dist_rank, DIST_WORLD,
+                            (staged, arrays, torch.device(DEVICE).type),
+                            backend="gloo", timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+    held, flips = [], []
+    for i, (name, q, kw) in enumerate(batches):
+        cfg = SearchConfig(**kw)
+        got = [TopK(**{f: torch.from_numpy(r["batches"][i]["fields"][f]
+                                           ).to(DEVICE)
+                       for f in TOPK_FIELDS}) for r in ranks]
+        for r, other in enumerate(got[1:], 1):
+            check_identical(other, got[0], f"dist {name}: rank {r}")
+        k_log, p_log = [], []
+        with recorded_decisions(k_log):
+            kernel = dist_reference(index, q, cfg, plain=False)
+        check_identical(got[0], kernel,
+                        f"dist {name} vs the one-process kernel-path merge")
+        with recorded_decisions(p_log):
+            plain = dist_reference(index, q, cfg, plain=True)
+        # output row i merges row r of walk (half, shard) for each shard
+        n_data, n_model = DIST_SHAPE
+        n_local = q.n_queries // n_model
+        rows = [[(h * n_data + sh, r) for sh in range(n_data)] if k_log
+                else [] for h, r in (divmod(i, n_local)
+                                     for i in range(q.n_queries))]
+        flips += [{"batch": name, **f} for f in check_audited(
+            got[0], plain, k_log, p_log, rows,
+            f"dist {name} vs the one-process plain merge")]
+        if name == "safe":
+            single = retrieve(index, q, cfg, device=DEVICE)
+            if not np.allclose(np.sort(got[0].scores.cpu().numpy(), 1),
+                               np.sort(single.scores.cpu().numpy(), 1),
+                               rtol=1e-4, atol=1e-4):
+                raise AssertionError("dist safe: sharded scores differ "
+                                     "from single-device retrieval")
+        held.append(name)
+    for r in ranks:
+        for b in r["batches"]:
+            missing = [k for k in DIST_NEED.get(b["name"], ())
+                       if b["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"dist: rank {r['rank']} launched no "
+                                     f"{missing} on batch {b['name']}")
+    launches = [{k: sum(b["launches"][k] for b in r["batches"])
+                 for k in r["batches"][0]["launches"]} for r in ranks]
+
+    # the launcher, as a user starts it, on the cli phase's saved world
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "m.json")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+             DEVICE, "--devices", "4", "--load-dir", saved, "--vocab",
+             str(index.vocab), "--n-docs", "2000", "--batch-size", "64",
+             "--batches", "4", "--metrics-json", metrics],
+            env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=tmp,
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        out = run.stdout
+        if run.returncode != 0:
+            raise AssertionError(f"dist cli: exit code {run.returncode}:\n"
+                                 f"{out}{run.stderr}")
+        for want in ("[serve] sharded over {'data': 2, 'model': 2}",
+                     "[serve] 4 ranks over gloo on ",
+                     "[serve] 256 queries in 4 batches", "[serve] funnel"):
+            if want not in out:
+                raise AssertionError(f"dist cli: no {want!r} line:\n{out}")
+        served = json.loads(Path(metrics).read_text())
+    cli_lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("[serve] sharded", "[serve] 4 ranks",
+                                   "[serve] funnel"))
+                 or re.match(r"\[serve\] \d+ queries in", ln)]
+    ms0 = {b["name"]: round(b["ms"], 3) for b in ranks[0]["batches"]}
+    log("dist", backend="gloo", mesh={"data": DIST_SHAPE[0],
+                                      "model": DIST_SHAPE[1]},
+        ranks=DIST_WORLD, cards=torch.cuda.device_count(),
+        local_m=[r["local_m"] for r in ranks],
+        coords=[r["coord"] for r in ranks], held=held,
+        counter_flips_vs_plain=flips,
+        batch_ms_rank0=ms0, serve_phase_ms=fresh_ms[:4],
+        peak_mb=[round(r["peak_mb"], 1) for r in ranks],
+        setup_s=[round(r["setup_s"], 2) for r in ranks],
+        stage_s=round(stage_s, 3), ranks_s=round(ranks_s, 2),
+        launches=launches, cli_seconds=round(cli_s, 2),
+        cli_queries=served.get("serve_queries_total"), cli=cli_lines,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# encoder: the SPLADE encoder's forward pass at its published widths
+# ---------------------------------------------------------------------------
+
+ENC_SEED = SEED + 30
+ENC_SEQ = 64
+ENC_QUERIES = 64
+ENC_DOC_BATCH = 128
+ENC_DOC_BATCHES = 64
+ENC_T_PAD = 32
+
+
+def encoder_tokens(rng, vocab: int, batch: int, seq: int, ragged: bool):
+    """examples/train_sparse_encoder.py's synthetic text, drawn with numpy:
+    the first half of each row from a topic's 32 tokens, the rest noise;
+    with ``ragged`` half the rows are cut short (at least 8 tokens)."""
+    topic = rng.integers(0, vocab // 64, (batch, 1))
+    base = topic * 64 + rng.integers(0, 32, (batch, seq))
+    noise = rng.integers(0, vocab, (batch, seq))
+    toks = np.where(np.arange(seq) < seq // 2, base, noise)
+    lens = np.full(batch, seq)
+    if ragged:
+        lens[batch // 2:] = rng.integers(8, seq, batch - batch // 2)
+    return toks.astype(np.int64), np.arange(seq)[None, :] < lens[:, None]
+
+
+def phase_encoder(engine, index, torch) -> dict:
+    """``SparseEncConfig()`` at its published widths with random weights
+    from a seeded generator: encode on the card against the same weights
+    on the CPU, ``to_sparse_docs`` on both, the encoded queries served by
+    the serve phase's engine against the on-card plain path; encode timed
+    at batch 64 and 128 and over 64 doc batches."""
+    from repro_torch.core.search import retrieve
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.sparse_encoder import (SparseEncConfig, encode,
+                                                   init_params,
+                                                   to_sparse_docs)
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    t_phase = time.perf_counter()
+    cfg = SparseEncConfig()
+    if cfg.vocab != index.vocab:
+        raise AssertionError(f"encoder: vocab {cfg.vocab} is not the "
+                             f"index's {index.vocab}")
+    t0 = time.perf_counter()
+    model = init_params(torch.Generator().manual_seed(ENC_SEED), cfg,
+                        device=DEVICE)
+    on_cpu = init_params(torch.Generator().manual_seed(ENC_SEED), cfg,
+                         device="cpu")
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(ENC_SEED)
+    qt, qm = (torch.from_numpy(a) for a in encoder_tokens(
+        rng, cfg.vocab, ENC_QUERIES, ENC_SEQ, ragged=True))
+    errs = {}
+    with torch.no_grad():
+        got = encode(model, qt, qm)
+        want = encode(on_cpu, qt, qm)
+        # the same weights in float64 on the CPU: how far each device's
+        # fp32 sits from exact, beside how far the two sit apart
+        on_cpu = on_cpu.double()                # in place: last use
+        exact = encode(on_cpu, qt, qm)
+        for key in ("sparse", "dense_max", "token_emb"):
+            live = exact[key] > -1e29
+            errs[key] = {
+                "card_vs_cpu": float((got[key].cpu() - want[key]).abs().max()),
+                **{f"{what}_vs_f64": float(
+                    (out.cpu().double() - exact[key])[live].abs().max())
+                   for what, out in (("card", got[key]),
+                                     ("cpu", want[key]))}}
+        del exact
+        for key in ("sparse", "dense_max"):
+            if not torch.allclose(got[key].cpu(), want[key], rtol=1e-4,
+                                  atol=1e-5):
+                raise AssertionError(f"encoder: {key} on the card differs "
+                                     f"from the CPU: {errs[key]}")
+        card_q = to_sparse_docs(got["sparse"], ENC_T_PAD, cfg.vocab)
+        cpu_q = to_sparse_docs(want["sparse"], ENC_T_PAD, cfg.vocab)
+        if not torch.allclose(card_q.tw.cpu(), cpu_q.tw, rtol=1e-4,
+                              atol=1e-5):
+            raise AssertionError("encoder: to_sparse_docs weights differ")
+        # an id may differ only where the card's term weighs, on the CPU,
+        # what the CPU's term at that slot weighs: a near tie
+        g_ids = card_q.tids.cpu().long()
+        swaps = (g_ids != cpu_q.tids).nonzero().tolist()
+        for r, c in swaps:
+            a = float(want["sparse"][r, g_ids[r, c]])
+            b = float(cpu_q.tw[r, c])
+            if abs(a - b) > 1e-4 * abs(b) + 1e-5:
+                raise AssertionError(f"encoder: query {r} slot {c}: ids "
+                                     f"differ beyond a near tie")
+    queries = QueryBatch(tids=card_q.tids, tw=card_q.tw, mask=card_q.mask,
+                         vocab=cfg.vocab)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = engine.search(queries)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    with swapped_wrappers(plain_versions):
+        plain = retrieve(index, queries, engine.cfg, device=DEVICE)
+    check_close(served, plain, "encoder: encoded queries, kernel vs plain")
+    missing = [k for k in ("segment_bound_gemm", "plan_wave", "score_queue")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"encoder: the served batch launched no "
+                             f"{missing}")
+
+    qt_d, qm_d = qt.to(DEVICE), qm.to(DEVICE)
+    docs = [tuple(torch.from_numpy(a).to(DEVICE) for a in encoder_tokens(
+        rng, cfg.vocab, ENC_DOC_BATCH, ENC_SEQ, ragged=False))
+        for _ in range(ENC_DOC_BATCHES)]
+    with torch.no_grad():
+        q_ms = time_ms(lambda: encode(model, qt_d, qm_d))
+        d_ms = time_ms(lambda: encode(model, *docs[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for d in docs:
+            encode(model, *d)
+        torch.cuda.synchronize()
+        docs_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log("encoder", params=model.n_params(), vocab=cfg.vocab,
+        d_model=cfg.d_model, layers=cfg.n_layers, heads=cfg.n_heads,
+        d_ff=cfg.d_ff, seq=ENC_SEQ, init_s=round(init_s, 3),
+        short_rows=int((~qm.all(1)).sum()), max_abs_err=errs,
+        id_swaps=len(swaps),
+        mean_query_terms=float(card_q.mask.sum(1).float().mean()),
+        encode_ms_batch64=round(q_ms, 4),
+        encode_ms_batch128=round(d_ms, 4),
+        doc_batches=ENC_DOC_BATCHES, docs_per_s=round(
+            ENC_DOC_BATCHES * ENC_DOC_BATCH / docs_s, 1),
+        peak_mb=round(peak / 1e6, 1), serve_ms=round(serve_ms, 3),
+        served_clusters_mean=float(served.n_scored_clusters.float().mean()),
+        launches=launches, seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -1768,8 +2343,8 @@ def superblock_plan_times(args, torch) -> dict:
                 shape=dict(n_q=a[2].shape[0], G=a[0].shape[0]))
 
 
-def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                  torch) -> list[dict]:
+def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
+                  enc, torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
     (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
@@ -1809,7 +2384,9 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
                 "superblock": sb["launches"][name],
                 "pipelined": pl["launches"][name],
                 "lifecycle": lc["launches"][name],
-                "frontend": fe["launches"][name]}
+                "frontend": fe["launches"][name],
+                "dist": [r[name] for r in dist["launches"]],
+                "encoder": enc["launches"][name]}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -2170,9 +2747,14 @@ def main() -> int:
     fe = phase_frontend(geo, engine, index, fe_queries, torch)
     phase_cluster(geo, index, queries, docs, torch)
     del docs
-    phase_cli(index, fe, torch)
+    import tempfile
+    with tempfile.TemporaryDirectory() as world_dir:
+        saved = os.path.join(world_dir, "index")
+        phase_cli(index, fe, saved, torch)
+        dist = phase_dist(geo, index, queries, fresh_ms, saved, torch)
+    enc = phase_encoder(engine, index, torch)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                         torch)
+                         dist, enc, torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

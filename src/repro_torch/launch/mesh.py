@@ -1,0 +1,140 @@
+"""Meshes of ranks over ``torch.distributed`` (PyTorch port of
+``repro/launch/mesh.py``).
+
+Where JAX lays one program over a mesh of devices, the port runs one
+process a rank: :func:`spawn_ranks` starts them (start method ``spawn``,
+a ``file://`` rendezvous in a temporary directory, so no port is fixed),
+each rank joins the default process group, and :func:`make_host_mesh`
+names the group's axes with a ``DeviceMesh``. Rank ``r`` sits at
+``numpy.unravel_index(r, shape)``, the row-major order of ``jax.make_mesh``
+over the same device list.
+
+The production meshes of the reference (256 and 512 devices,
+``make_production_mesh``) belong to the training stack and are not
+ported yet. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def make_host_mesh(shape=(1, 1), axes=("data", "model"),
+                   device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over the ranks of the default process
+    group (which the caller has joined), one named dim per axis."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def rank_device(rank: int, device_type: str) -> torch.device:
+    """The device a rank searches on: ``cuda:(rank mod cards)``, so ranks
+    share cards when there are fewer cards than ranks. A rank asked for
+    ``cuda`` on a machine without a card raises."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank} was asked for {device_type!r} and "
+                           f"no CUDA device is available")
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _rank_main(rank: int, world: int, init_method: str, backend: str,
+               fn, args: tuple, results) -> None:
+    try:
+        dist.init_process_group(backend, init_method=init_method,
+                                world_size=world, rank=rank)
+        try:
+            out = fn(rank, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:               # noqa: BLE001 — reported, re-raised
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _failures(results, rank: int, trace: str, wait_s: float = 2.0) -> str:
+    """Every rank's failure that arrives within ``wait_s`` of the first:
+    a rank that raises drops its connections, so its peers fail in their
+    collectives too, and their reports can arrive first."""
+    failed = {rank: trace}
+    deadline = time.monotonic() + wait_s
+    while (left := deadline - time.monotonic()) > 0:
+        try:
+            r, ok, out = results.get(timeout=left)
+        except queue.Empty:
+            break
+        if not ok:
+            failed[r] = out
+    return "\n".join(f"rank {r} failed:\n{t}"
+                     for r, t in sorted(failed.items()))
+
+
+def spawn_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
+                timeout_s: float | None = 120.0) -> list:
+    """Run ``fn(rank, *args)`` in ``world`` fresh processes that share one
+    process group; returns each rank's result (picklable, on the CPU), in
+    rank order.
+
+    ``fn`` must be importable by name (spawned processes start from a
+    fresh import). The first rank that raises or dies, or ``timeout_s``
+    (None: no limit) without every result, kills all ranks and raises
+    here: a rank left waiting in a collective never holds the caller."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, init, backend, fn, args,
+                                   results), daemon=True)
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got: dict[int, object] = {}
+        t0 = time.monotonic()
+        try:
+            # a rank that exits 0 has sent its result; one that died is
+            # given a last look at the queue for its traceback
+            dead: dict[int, int] = {}
+            while len(got) < world:
+                try:
+                    rank, ok, out = results.get(timeout=2.0 if dead
+                                                else 1.0)
+                except queue.Empty:
+                    if dead:
+                        raise RuntimeError(
+                            f"ranks {sorted(dead)} died without a result "
+                            f"(exit codes {sorted(dead.values())})"
+                        ) from None
+                    dead = {r: p.exitcode for r, p in enumerate(procs)
+                            if p.exitcode not in (None, 0)}
+                    if (timeout_s is not None
+                            and time.monotonic() - t0 > timeout_s):
+                        raise TimeoutError(
+                            f"{world - len(got)} of {world} ranks gave no "
+                            f"result within {timeout_s:.0f} s") from None
+                    continue
+                if not ok:
+                    raise RuntimeError(_failures(results, rank, out))
+                got[rank] = out
+            for p in procs:
+                p.join(timeout=30.0)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            results.close()
+    return [got[r] for r in range(world)]

@@ -61,8 +61,19 @@ Observability options (docs/observability.md):
   --split-every N    every Nth request, split planner vs executor wall
                      time into the registry (0 = only traced requests).
 
-``--devices N`` (the sharded path) is not ported yet: the launcher exits
-with an error (ROADMAP A.13).
+Sharded serving:
+  --devices N     N >= 4: serve over N ranks on a (N // 2, 2) ("data",
+                  "model") mesh, one process a rank (``launch/mesh.py``):
+                  the clusters split over "data", each batch's rows over
+                  "model", results merged with ``distributed_retrieve``.
+                  The index is built or loaded once here and each rank
+                  maps only its block onto its device. The backend is
+                  nccl when every rank owns a card and gloo when ranks
+                  share one (or with --device cpu); the search runs on
+                  the card either way. --churn, --save-dir and
+                  --budget-ms are ignored on this path. N < 4 serves on
+                  one device, as the reference does with fewer than 4
+                  devices.
 """
 
 from __future__ import annotations
@@ -106,7 +117,7 @@ def _parse(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=8,
                     help="checkpoint every N commits (0 = only at exit)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="sharded serving over N devices (not ported yet)")
+                    help="sharded serving over N ranks (N >= 4)")
     ap.add_argument("--metrics-port", type=int, default=0,
                     help="serve /metrics on this port (0 = off)")
     ap.add_argument("--metrics-json", type=str, default="",
@@ -289,13 +300,111 @@ def _recover_writer(eng, args, registry, backoff_cap_s: float = 2.0):
         f"write-plane recovery failed after retries: {last!r}")
 
 
+def _observability(args):
+    """(Observability or None, the registry the run records into)."""
+    from repro_torch.obs import MetricsRegistry, Observability
+    want_obs = bool(args.metrics_port or args.metrics_json
+                    or args.trace_dir or args.profile_first_n
+                    or args.split_every)
+    obs = Observability(
+        trace_dir=args.trace_dir or None,
+        trace_sample_every=max(args.trace_every, 1),
+        profile_first_n=args.profile_first_n,
+        split_every=args.split_every) if want_obs else None
+    return obs, obs.registry if obs is not None else MetricsRegistry()
+
+
+def _serve_rank(rank: int, args, staged: str, spec, doc_topic, cfg,
+                world: int, device_type: str) -> None:
+    """One rank of ``--devices``: its shard of the staged index on its
+    device, the untimed warm-up batch (seed 997), then batch i from seed
+    i through ``distributed_retrieve``; rank 0 records and prints."""
+    import time
+
+    import torch
+
+    from repro_torch.data.synthetic import make_queries
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.serving.engine import (ServeStats, distributed_retrieve,
+                                            shard_index, staged_index)
+
+    dev = rank_device(rank, device_type)
+    if dev.type == "cpu":
+        # ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), dev.type)
+    index = shard_index(staged_index(staged), mesh, device=dev)
+    lead = rank == 0
+    obs, registry = _observability(args) if lead else (None, None)
+    server = None
+    if lead:
+        print("[serve] sharded over", dict(zip(mesh.mesh_dim_names,
+                                               mesh.shape)), flush=True)
+        if args.metrics_port:
+            from repro_torch.obs.exposition import MetricsServer
+            server = MetricsServer(registry, port=args.metrics_port)
+            print(f"[serve] /metrics on port {server.port}", flush=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # the same registry-backed accounting as the single-device engine;
+    # the warm-up batch is not traffic and records nothing
+    dstats = ServeStats(registry=registry)
+    warm, _ = make_queries(spec, args.batch_size, doc_topic, seed=997)
+    distributed_retrieve(index, warm, cfg, mesh)
+    sync()
+    for step in range(args.batches):
+        q, _ = make_queries(spec, args.batch_size, doc_topic, seed=step)
+        t0 = time.perf_counter()
+        distributed_retrieve(index, q, cfg, mesh,
+                             registry=registry if obs is not None else None)
+        sync()
+        dstats.record(args.batch_size, time.perf_counter() - t0)
+    if lead:
+        print(_summary(registry, dstats, index.m * (world // 2)),
+              flush=True)
+        if args.metrics_json:
+            _dump_metrics(registry, args.metrics_json)
+        if server is not None:
+            server.close()
+
+
+def _serve_sharded(args, index, spec, doc_topic, cfg, dev) -> None:
+    """``--devices``: stage the index once, build the kernels once, then
+    run the ranks; rank 0 prints the summary."""
+    import sys
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.engine import stage_index
+
+    if args.churn or args.save_dir or args.budget_ms:
+        print("[serve] warning: --churn/--save-dir/--budget-ms are "
+              "ignored on the distributed (--devices) path")
+    world = args.devices // 2 * 2
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = "nccl" if cards >= world else "gloo"
+    if dev.type == "cuda":
+        # ranks only load the library: concurrent nvcc builds into the
+        # same directory never race
+        from repro_torch.device import build_kernels
+        build_kernels()
+    print(f"[serve] {world} ranks over {backend} on "
+          f"{f'{cards} card(s)' if cards else 'the CPU'}")
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as staged:
+        stage_index(index, staged)
+        spawn_ranks(_serve_rank, world,
+                    (args, staged, spec, doc_topic, cfg, world, dev.type),
+                    backend=backend, timeout_s=None)
+
+
 def main(argv=None) -> None:
     args = _parse(argv)
-    if args.devices:
-        raise SystemExit(
-            "[serve] --devices: sharded serving over several devices is "
-            "not ported yet (ROADMAP A.13); run without --devices to serve "
-            "on one device")
 
     import numpy as np
     import torch
@@ -313,22 +422,17 @@ def main(argv=None) -> None:
     from repro_torch.data.synthetic import (CorpusSpec, make_corpus,
                                             make_queries)
     from repro_torch.lifecycle import IndexWriter, load_index, save_index
-    from repro_torch.obs import MetricsRegistry, Observability
     from repro_torch.serving.engine import (AdaptiveBudget, RetrievalEngine,
                                             ServeStats)
 
-    want_obs = bool(args.metrics_port or args.metrics_json
-                    or args.trace_dir or args.profile_first_n
-                    or args.split_every)
-    obs = Observability(
-        trace_dir=args.trace_dir or None,
-        trace_sample_every=max(args.trace_every, 1),
-        profile_first_n=args.profile_first_n,
-        split_every=args.split_every) if want_obs else None
-    registry = obs.registry if obs is not None else MetricsRegistry()
+    # the sharded path keeps the index on the host here: each rank maps
+    # its own block onto its device
+    sharded = args.devices >= 4
+    home = torch.device("cpu") if sharded else dev
+    obs, registry = (None, None) if sharded else _observability(args)
 
     server = None
-    if args.metrics_port:
+    if args.metrics_port and not sharded:
         from repro_torch.obs.exposition import MetricsServer
         server = MetricsServer(registry, port=args.metrics_port)
         print(f"[serve] /metrics on port {server.port}")
@@ -337,7 +441,7 @@ def main(argv=None) -> None:
                       n_topics=max(8, args.clusters // 2))
     docs, doc_topic = make_corpus(spec)
     if args.load_dir:
-        index, manifest = load_index(args.load_dir, device=dev)
+        index, manifest = load_index(args.load_dir, device=home)
         print(f"[serve] cold start from {args.load_dir} "
               f"(epoch {manifest['epoch']}, v{manifest['format_version']})")
         if index.vocab != spec.vocab:
@@ -352,7 +456,7 @@ def main(argv=None) -> None:
         d_pad = int(2.0 * args.n_docs / args.clusters)
         assign = balanced_assign(rep, centers, capacity=d_pad)
         index = build_index(docs, assign.cpu().numpy(), m=args.clusters,
-                            n_seg=args.segments, d_pad=d_pad, device=dev)
+                            n_seg=args.segments, d_pad=d_pad, device=home)
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     print(f"[serve] index: {index.m}x{index.n_seg}, "
           f"{index.nbytes() / 2**20:.1f} MiB, "
@@ -360,6 +464,9 @@ def main(argv=None) -> None:
 
     cfg = SearchConfig(k=args.k, mu=args.mu, eta=args.eta,
                        engine=args.engine, bounds_impl="gemm")
+    if sharded:
+        _serve_sharded(args, index, spec, doc_topic, cfg, dev)
+        return
 
     writer = None
     if args.churn > 0:

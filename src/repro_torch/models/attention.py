@@ -1,0 +1,137 @@
+"""GQA attention: chunked online softmax (train / prefill) and KV-cache
+decode (PyTorch port of ``repro/models/attention.py``).
+
+Layouts are the reference's: ``wq`` (d, G, P, H) with G key/value heads
+and P query heads each, ``wk``/``wv`` (d, G, H), ``wo`` (G, P, H, d);
+activations q (B, S, G, P, H), k/v (B, S, G, H). The reference computes
+attention in plain array code, outside any Pallas kernel, so the port's
+is plain tensor code too: the online softmax over KV chunks never forms
+the (S_q x S_kv) score matrix of a long sequence. The reference's
+sharding constraints are dropped (see ``layers.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
+                                       norm_init)
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+              d_head: int, qk_norm: bool, dtype=torch.float32) -> dict:
+    q_per = n_heads // n_kv
+    p = {
+        "wq": dense_init(gen, d_model, n_kv * q_per * d_head, dtype
+                         ).reshape(d_model, n_kv, q_per, d_head),
+        "wk": dense_init(gen, d_model, n_kv * d_head, dtype
+                         ).reshape(d_model, n_kv, d_head),
+        "wv": dense_init(gen, d_model, n_kv * d_head, dtype
+                         ).reshape(d_model, n_kv, d_head),
+        "wo": dense_init(gen, n_kv * q_per * d_head, d_model, dtype
+                         ).reshape(n_kv, q_per, d_head, d_model),
+    }
+    if qk_norm:
+        p["q_norm"] = norm_init("rms", d_head)
+        p["k_norm"] = norm_init("rms", d_head)
+    return p
+
+
+def _project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
+                 qk_norm: bool, rope_theta: float):
+    """x (B, S, D) -> q (B, S, G, P, H), k/v (B, S, G, H)."""
+    q = torch.einsum("bsd,dgph->bsgph", x, params["wq"])
+    k = torch.einsum("bsd,dgh->bsgh", x, params["wk"])
+    v = torch.einsum("bsd,dgh->bsgh", x, params["wv"])
+    if qk_norm:
+        q = apply_norm(params["q_norm"], q, "rms")
+        k = apply_norm(params["k_norm"], k, "rms")
+    # rope over the seq axis: move seq next-to-last
+    q = apply_rope(q.movedim(1, 3), positions[:, None, None, :],
+                   rope_theta).movedim(3, 1)
+    k = apply_rope(k.movedim(1, 2), positions[:, None, :],
+                   rope_theta).movedim(2, 1)
+    return q, k, v
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, chunk: int = 512,
+                             causal: bool = True,
+                             q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks.
+
+    q: (B, Sq, G, P, H); k, v: (B, Skv, G, H). Returns (B, Sq, G, P, H).
+    KV is zero-padded to whole chunks and the padding masked out."""
+    B, Sq, G, Pp, H = q.shape
+    Skv = k.shape[1]
+    chunk = min(chunk, Skv)
+    n_chunks = -(-Skv // chunk)
+    pad = n_chunks * chunk - Skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    qf = q.float() * (H ** -0.5)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Sq, G, Pp), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, G, Pp), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, G, Pp, H), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        kblk = k[:, c * chunk:(c + 1) * chunk].float()
+        vblk = v[:, c * chunk:(c + 1) * chunk].float()
+        kv_pos = c * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bsgph,bcgh->bsgpc", qf, kblk)
+        live = (kv_pos < Skv)[None, :]
+        mask = (kv_pos[None, :] <= q_pos[:, None]) & live if causal \
+            else live.expand(Sq, chunk)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bsgpc,bcgh->bsgph", p,
+                                                    vblk)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def attend_train(params, x: torch.Tensor, *, qk_norm: bool,
+                 rope_theta: float, chunk: int = 512,
+                 causal: bool = True) -> torch.Tensor:
+    """Full self-attention for train / prefill. x: (B, S, D). No padding
+    mask enters here, as in the reference."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(params, x, positions, qk_norm, rope_theta)
+    out = chunked_causal_attention(q, k, v, chunk=chunk, causal=causal)
+    return torch.einsum("bsgph,gphd->bsd", out, params["wo"])
+
+
+def attend_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, cur_len, *, qk_norm: bool,
+                  rope_theta: float):
+    """One-token decode against a KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_max, G, H); ``cur_len`` the slot the
+    token is written to (an int or a 0-dim tensor). Returns (out (B, 1, D),
+    new cache_k, new cache_v); the caches are new tensors, as the
+    reference's masked write returns them."""
+    B = x.shape[0]
+    S_max = cache_k.shape[1]
+    cur = torch.as_tensor(cur_len, device=x.device)
+    positions = cur.expand(B, 1).to(torch.int32)
+    q, k, v = _project_qkv(params, x, positions, qk_norm, rope_theta)
+    slot = (torch.arange(S_max, device=x.device) == cur)[None, :, None, None]
+    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    qf = q.float() * (q.shape[-1] ** -0.5)
+    s = torch.einsum("bsgph,bcgh->bsgpc", qf, cache_k.float())
+    valid = torch.arange(S_max, device=x.device)[None, :] <= cur
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bsgpc,bcgh->bsgph", p, cache_v.float())
+    out = torch.einsum("bsgph,gphd->bsd", out.to(x.dtype), params["wo"])
+    return out, cache_k, cache_v

@@ -21,22 +21,31 @@ latency histograms into its metrics registry; sampled requests also
 split planner from executor time through :func:`planner_executor_split`
 (out of band: the latency histograms and the adaptive budget only ever
 see the production call) and emit per-request trace spans. With
-``obs=None`` a search is the plain call. The distributed path is not
-ported yet (ROADMAP queue A).
+``obs=None`` a search is the plain call.
+
+The distributed path (``distributed_retrieve``) runs one process a rank:
+each rank holds one block of clusters (``shard_index``), searches its
+rows of the batch on it, and the ranks merge over ``torch.distributed``
+(``launch/mesh.py``).
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.search import (SearchConfig, planner_executor_split,
+from repro_torch.core.search import (SearchConfig, _retrieve_arrays,
+                                     planner_executor_split,
                                      resolved_engine, retrieve,
-                                     retrieve_pipelined)
-from repro_torch.core.types import ClusterIndex, QueryBatch, TopK
+                                     retrieve_pipelined, topk_stable)
+from repro_torch.core.types import (INDEX_FIELDS, ClusterIndex, QueryBatch,
+                                    TopK)
 from repro_torch.device import check_on, resolve_device
 from repro_torch.lifecycle.snapshot import IndexSnapshot, SnapshotPublisher
 from repro_torch.obs.funnel import (Observability, funnel_from_topk,
@@ -517,3 +526,155 @@ class RetrievalEngine:
         registry.gauge("lifecycle_collected_epochs",
                        "superseded epochs garbage-collected").set(
             gc["collected_epochs"])
+
+
+# ---------------------------------------------------------------------------
+# Distributed retrieval (one process a rank over the cluster axis)
+# ---------------------------------------------------------------------------
+
+def _cluster_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def index_shard_specs(index: ClusterIndex,
+                      multi_pod: bool = False) -> dict[str, tuple]:
+    """Field -> the mesh axes its leading (cluster) axis is split over,
+    ``()`` for a replicated field: the leading entry of each
+    ``PartitionSpec`` of the reference. The superblock tables span
+    *global* cluster ids, so they (and the scale) are replicated; the
+    distributed path is single-level (superblocks raise)."""
+    c = _cluster_axes(multi_pod)
+    replicated = ("scale", "super_members", "super_max_stacked")
+    return {f: (() if f in replicated else c) for f in INDEX_FIELDS}
+
+
+def _coords(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _cluster_block(mesh, multi_pod: bool) -> tuple[int, int]:
+    """(this rank's cluster block, number of blocks): ``pod * n_data +
+    data`` with ``multi_pod``, the order of ``P(("pod", "data"))``."""
+    at = _coords(mesh)
+    block, n_blocks = 0, 1
+    for ax in _cluster_axes(multi_pod):
+        size = mesh.size(mesh.mesh_dim_names.index(ax))
+        block, n_blocks = block * size + at[ax], n_blocks * size
+    return block, n_blocks
+
+
+def shard_index(index: ClusterIndex, mesh, multi_pod: bool = False,
+                device: str | torch.device | None = None) -> ClusterIndex:
+    """This rank's shard of ``index`` on ``device``: its contiguous block
+    of clusters for every split field, the replicated fields whole (the
+    counterpart of ``jax.device_put`` with ``index_shard_specs``). Only
+    the block is copied to the device; doc ids stay global."""
+    dev = resolve_device(device)
+    block, n_blocks = _cluster_block(mesh, multi_pod)
+    if index.m % n_blocks:
+        raise ValueError(f"m = {index.m} clusters do not split into "
+                         f"{n_blocks} equal cluster shards")
+    size = index.m // n_blocks
+    lo = block * size
+    specs = index_shard_specs(index, multi_pod)
+    return ClusterIndex(
+        **{f: (getattr(index, f)[lo:lo + size] if specs[f]
+               else getattr(index, f)).to(dev) for f in INDEX_FIELDS},
+        vocab=index.vocab, n_seg=index.n_seg)
+
+
+def stage_index(index: ClusterIndex, directory: str) -> None:
+    """Write ``index`` as one ``.npy`` a field under ``directory``, for
+    ranks in other processes to map their block from
+    (:func:`staged_index`) instead of each receiving the whole index."""
+    os.makedirs(directory, exist_ok=True)
+    for f in INDEX_FIELDS:
+        np.save(os.path.join(directory, f + ".npy"),
+                getattr(index, f).cpu().numpy())
+    with open(os.path.join(directory, "geometry.json"), "w") as fh:
+        json.dump({"vocab": index.vocab, "n_seg": index.n_seg}, fh)
+
+
+def staged_index(directory: str) -> ClusterIndex:
+    """The index :func:`stage_index` wrote, memory-mapped on the CPU
+    (copy on write): a rank reads only the rows it shards."""
+    with open(os.path.join(directory, "geometry.json")) as fh:
+        geo = json.load(fh)
+    return ClusterIndex(
+        **{f: torch.from_numpy(np.load(os.path.join(directory, f + ".npy"),
+                                       mmap_mode="c"))
+           for f in INDEX_FIELDS}, **geo)
+
+
+def _all_gather(t: torch.Tensor, group, n: int) -> list[torch.Tensor]:
+    out = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def distributed_retrieve(index_local: ClusterIndex, queries: QueryBatch,
+                         cfg: SearchConfig, mesh, multi_pod: bool = False,
+                         registry: MetricsRegistry | None = None) -> TopK:
+    """Retrieval on one rank of ``mesh`` (run it on every rank): the
+    rank's rows of the batch (by its "model" coordinate) searched on its
+    cluster shard with the configured engine, the per-shard top-k merged
+    over the cluster axes ("pod" first, then "data") by an all-gather and
+    a stable top-k each, the work counters summed over them (all but the
+    two superblock counters, which count the replicated coarse table),
+    and the rows gathered over "model": every rank returns the whole
+    batch's TopK.
+
+    ``queries`` is the whole batch on any device. With ``registry``, rank
+    0 records the pruning funnel as the reference's host side does."""
+    caxes = _cluster_axes(multi_pod)
+    if cfg.superblocks:
+        raise ValueError(
+            "superblocks=True is not supported on the distributed path: "
+            "the replicated coarse tables index global cluster ids, "
+            "which a cluster shard's local arrays cannot resolve")
+    dims = mesh.mesh_dim_names
+    at = _coords(mesh)
+    n_model = mesh.size(dims.index("model"))
+    n_q = queries.n_queries
+    if n_q % n_model:
+        raise ValueError(f"a batch of {n_q} queries does not split over "
+                         f"{n_model} query shards")
+    n_local = n_q // n_model
+    lo = at["model"] * n_local
+    q_local = QueryBatch(tids=queries.tids[lo:lo + n_local],
+                         tw=queries.tw[lo:lo + n_local],
+                         mask=queries.mask[lo:lo + n_local],
+                         vocab=queries.vocab).to(index_local.device)
+    ids, scores, *counters = _retrieve_arrays(index_local, q_local, cfg)
+    for ax in caxes:
+        group, n = mesh.get_group(ax), mesh.size(dims.index(ax))
+        all_scores = torch.cat(_all_gather(scores, group, n), dim=1)
+        all_ids = torch.cat(_all_gather(ids, group, n), dim=1)
+        scores, pos = topk_stable(all_scores, cfg.k)
+        ids = torch.gather(all_ids, 1, pos)
+    # nine counters, TopK order; the last two (superblocks walked and
+    # pruned) count the replicated coarse table and are not summed
+    summed = torch.stack(counters[:7])
+    for ax in caxes:
+        dist.all_reduce(summed, op=dist.ReduceOp.SUM,
+                        group=mesh.get_group(ax))
+    rows = torch.cat([summed, torch.stack(counters[7:])])
+    g_model = mesh.get_group("model")
+    ids = torch.cat(_all_gather(ids, g_model, n_model))
+    scores = torch.cat(_all_gather(scores, g_model, n_model))
+    rows = torch.cat(_all_gather(rows, g_model, n_model), dim=1)
+    out = TopK(ids, scores, *rows.unbind(0))
+    if registry is not None and dist.get_rank() == 0:
+        # the funnel's semantics are set by the engine each shard ran:
+        # the auto route keys on the shard-local batch; index_local.m is
+        # this shard's, the funnel's m the global one
+        _, n_blocks = _cluster_block(mesh, multi_pod)
+        m = index_local.m * n_blocks
+        batched = resolved_engine(cfg, max(n_local, 1)) in (
+            "batched", "pipelined")
+        budget = cfg.cluster_budget if cfg.cluster_budget is not None \
+            else m
+        record_funnel(registry, funnel_from_topk(
+            out, batched=batched, n_q=n_q, d_pad=index_local.d_pad,
+            budget_clusters=min(budget, m), n_query_shards=n_model))
+    return out

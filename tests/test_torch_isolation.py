@@ -20,7 +20,8 @@ from repro_torch.core.search import SearchConfig, brute_force_topk, retrieve
 from repro_torch.core.types import INDEX_FIELDS
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
 from repro_torch.kernels import launch_counts, reset_launch_counts, wrappers
-from repro_torch.serving.engine import RetrievalEngine
+from repro_torch.models.sparse_encoder import SparseEncConfig, init_params
+from repro_torch.serving.engine import RetrievalEngine, shard_index
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -86,6 +87,11 @@ def test_entry_points_default_to_the_card(no_card):
         lambda: queries_from_arrays(np.zeros((1, 2), np.int32),
                                     np.zeros((1, 2), np.float32),
                                     np.zeros((1, 2), bool), vocab=50),
+        lambda: shard_index(index, mesh=None),
+        lambda: init_params(torch.Generator().manual_seed(0),
+                            SparseEncConfig(vocab=50, d_model=8,
+                                            n_layers=1, n_heads=2,
+                                            d_ff=16)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -9,7 +9,10 @@ the CPU, and held against the JAX package's launcher.
   * both launchers on a checkpoint the JAX package wrote, with churn, a
     durable write plane and the metrics dump, give the same non-timing
     counters;
-  * the refusals: ``--devices``, and no card without ``--device cpu``.
+  * ``--devices 4`` (four ranks over gloo on the CPU) on a checkpoint
+    the JAX package wrote, against the JAX launcher's ``--devices 4`` on
+    four host devices: the same sharded-over line, funnel and counters;
+  * the refusal of a missing card without ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -66,9 +69,7 @@ def test_default_build_and_offline_batches(tmp_path, capsys):
     assert int(index.cluster_ndocs.max()) <= 150
 
 
-def test_refuses_devices_and_a_missing_card(capsys):
-    with pytest.raises(SystemExit, match="ROADMAP A.13"):
-        t_serve.main(["--devices", "4", *SMALL])
+def test_refuses_a_missing_card():
     if torch.cuda.is_available():
         return
     with pytest.raises(SystemExit, match="--device cpu"):
@@ -149,15 +150,19 @@ def _reference_main(argv) -> None:
         signal.signal(signal.SIGTERM, saved_handler)
 
 
-def test_counters_match_reference_on_its_checkpoint(tmp_path, capsys):
+def _reference_checkpoint(path: Path) -> None:
     from repro.core.index import build_index
     from repro.data.synthetic import CorpusSpec, make_corpus
     from repro.lifecycle import save_index
 
     spec = CorpusSpec(n_docs=600, vocab=256, n_topics=8)
     docs, doc_topic = make_corpus(spec)
-    save_index(str(tmp_path / "ckpt"), build_index(
+    save_index(str(path), build_index(
         docs, doc_topic % 8, m=8, n_seg=2, d_pad=128, seed=5), epoch=3)
+
+
+def test_counters_match_reference_on_its_checkpoint(tmp_path, capsys):
+    _reference_checkpoint(tmp_path / "ckpt")
     common = [*SMALL, "--load-dir", str(tmp_path / "ckpt"), "--batches", "4",
               "--churn", "30", "--checkpoint-every", "2"]
     _reference_main([*common, "--durable-dir", str(tmp_path / "ref_d"),
@@ -196,3 +201,44 @@ def test_counters_match_reference_on_its_checkpoint(tmp_path, capsys):
                       device="cpu")
     np.testing.assert_array_equal(a.doc_ids.numpy(), b.doc_ids.numpy())
     np.testing.assert_array_equal(a.doc_tw.numpy(), b.doc_tw.numpy())
+
+
+
+def test_sharded_counters_match_reference(tmp_path):
+    """``--devices 4`` in both launchers, each in a subprocess: the JAX
+    one on four host devices, the port's on four gloo ranks on the CPU.
+    The (2, 2) mesh, the funnel line and every non-timing metric agree;
+    --churn is ignored with the reference's warning."""
+    _reference_checkpoint(tmp_path / "ckpt")
+    common = [*SMALL, "--load-dir", str(tmp_path / "ckpt"), "--batches",
+              "3", "--devices", "4", "--churn", "30"]
+    env = _env()
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_force_host_platform_device_count=4")
+    ref = subprocess.run(
+        [sys.executable, "-m", "repro.launch.serve", *common,
+         "--metrics-json", str(tmp_path / "ref.json")], env=env,
+        cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert ref.returncode == 0, ref.stdout + ref.stderr
+    port = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+         "cpu", *common, "--metrics-json", str(tmp_path / "port.json")],
+        env=_env(), cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert port.returncode == 0, port.stdout + port.stderr
+    for key in ("[serve] sharded over", "[serve] funnel",
+                "[serve] warning", "[serve] cold start"):
+        want = [ln for ln in ref.stdout.splitlines() if ln.startswith(key)]
+        got = [ln for ln in port.stdout.splitlines() if ln.startswith(key)]
+        assert got == want and got, key
+    assert "[serve] sharded over {'data': 2, 'model': 2}" in port.stdout
+    assert "[serve] 4 ranks over gloo on the CPU" in port.stdout
+    assert re.search(r"\[serve\] 24 queries in 3 batches", port.stdout)
+    want = json.loads((tmp_path / "ref.json").read_text())
+    got = json.loads((tmp_path / "port.json").read_text())
+    for name in TIMED:
+        want.pop(name, None)
+        got.pop(name, None)
+    assert got == want
+    assert got["serve_queries_total"] == 24
+    assert got["funnel_clusters_budgeted_total"] == 8 * 24
