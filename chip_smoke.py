@@ -154,10 +154,36 @@ nonzero and prints no result):
                batch 64 and 128, docs/s over 64 batches of 128 × 64
                tokens, peak memory.
 
-Phases 8–12 run after the lifecycle phase and before the kernels phase.
+ 13. train_encoder — ``python -m repro_torch.examples.train_sparse_encoder``
+               at its default flags, stage by stage (``SparseEncConfig()``,
+               300 steps at batch 24 x 64 tokens, AdamW with cosine 3e-4,
+               warmup 20): 2 steps at batch 8 on the card against the CPU
+               (fp32, TF32 off; loss, grad norm, first moment and
+               parameters, tolerances in ``card_vs_cpu``); under
+               deterministic algorithms the 300-step fit, timed (its loss
+               must fall), and fit(150) then fit(300) on one directory,
+               equal to it bit for bit; a checkpoint's host copy and
+               save; then 2,048 docs encoded, k-means (k = 32) and
+               ``balanced_assign`` (d_pad 128), ``build_index``, and 16
+               encoded queries through ``asc_retrieve`` (gemm bounds),
+               counted from zero (K1, the planner and K2 must launch),
+               held against the on-card plain path (``check_audited``)
+               and in safe mode against brute force; recall@10 and %C;
+ 14. train_lm — OLMo-1B (``configs/olmo_1b.py``): one AdamW step at
+               depth 2 with the full widths in fp32 on the card against
+               the CPU, then 10 more on the same batch (the loss must
+               fall by a nat); then ``python -m repro_torch.launch.train
+               --arch olmo-1b --preset full --steps 10 --batch 8 --seq
+               512`` as a subprocess (16 layers, bf16 compute on fp32
+               masters, remat): exit 0, ten finite losses within 0.1 of
+               ln V (its synthetic stream leaves ten steps at chance);
+               step ms, tokens/s, MFU (6 N tokens over the step time over
+               the 989 TFLOP/s bf16 peak) and peak memory.
+
+Phases 8–14 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
 (``path_launches``: serve, superblock, pipelined, lifecycle, frontend,
-dist (one count a rank), encoder).
+dist (one count a rank), encoder, train_encoder, train_lm).
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -2299,6 +2325,368 @@ def phase_encoder(engine, index, torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# train_encoder: the encoder's train -> index -> serve pipeline
+# ---------------------------------------------------------------------------
+
+TE_STEPS = 300              # the example's default run (batch 24 x 64)
+TE_RESUME_AT = 150          # the interrupted run stops after this many
+TE_CHECK_BATCH = 8          # card against CPU: 2 steps at this batch
+TE_CHECK_STEPS = 2
+
+
+def step_state(model, loss_fn, opt, tcfg, batches) -> tuple:
+    """``make_train_step`` over ``batches`` from a fresh optimizer state:
+    (each step's metrics as floats, the final state)."""
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.tree import module_tree
+    step = make_train_step(loss_fn, opt, tcfg)
+    state = opt.init(module_tree(model))
+    out = []
+    for i, b in enumerate(batches):
+        model, state, m = step(model, state, b, i)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, state
+
+
+def card_vs_cpu(on_cpu, on_card, loss_fn, opt, tcfg, batches, lr_sum,
+                what: str, torch) -> dict:
+    """The same steps on the CPU and on the card (fp32, TF32 off), from
+    the same weights: loss and grad norm each step to rtol 1e-4, the first
+    moment (0.1 x the clipped gradient, summed over steps) per tensor to
+    rtol 1e-3 and atol 1e-3 x its largest entry (the embedding's
+    gradient sums the gathered rows' and the tied head's terms in each
+    device's own order, atomics on the card, and cancels near zero: 1.1e-4
+    of the largest entry was seen), the parameters to atol 2 x the steps'
+    learning rates summed (a first AdamW step moves a weight by about
+    lr x sign(g); rounding can tip it where g is near zero). Returns the
+    largest differences."""
+    from repro_torch.training.tree import leaves
+    t0 = time.perf_counter()
+    m_cpu, s_cpu = step_state(on_cpu, loss_fn, opt, tcfg, batches)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_card, s_card = step_state(on_card, loss_fn, opt, tcfg, batches)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for i, (a, c) in enumerate(zip(m_card, m_cpu)):
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(a[k], c[k], rel_tol=1e-4):
+                raise AssertionError(f"{what}: step {i} {k} on the card "
+                                     f"{a[k]} against {c[k]} on the CPU")
+    mu_rel = 0.0
+    for i, (a, c) in enumerate(zip(leaves(s_card["mu"]),
+                                   leaves(s_cpu["mu"]))):
+        a, top = a.cpu(), float(c.abs().max())
+        if not torch.allclose(a, c, rtol=1e-3, atol=1e-3 * top):
+            raise AssertionError(f"{what}: first moment {i} differs")
+        mu_rel = max(mu_rel, float((a - c).abs().max()) / max(top, 1e-30))
+    p_err = 0.0
+    for a, c in zip(on_card.parameters(), on_cpu.parameters()):
+        d = float((a.detach().cpu() - c.detach()).abs().max())
+        if d > 2 * lr_sum + 1e-7:
+            raise AssertionError(f"{what}: a parameter moved {d} apart")
+        p_err = max(p_err, d)
+    return dict(loss=[round(m["loss"], 6) for m in m_card],
+                loss_rel_err=max(abs(a["loss"] - c["loss"]) / abs(c["loss"])
+                                 for a, c in zip(m_card, m_cpu)),
+                grad_norm=[round(m["grad_norm"], 6) for m in m_card],
+                grad_norm_rel_err=max(
+                    abs(a["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+                    for a, c in zip(m_card, m_cpu)),
+                mu_err_of_max=mu_rel, param_max_abs_err=p_err,
+                param_atol=2 * lr_sum + 1e-7, cpu_s=round(cpu_s, 2),
+                card_s=round(card_s, 2))
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms on (the embedding's backward accumulates
+    by atomics otherwise); ``CUBLAS_WORKSPACE_CONFIG`` is set in main.
+    Fresh tensors are not filled with NaN (a debugging aid of that mode,
+    one more kernel an allocation; it changes no result)."""
+    import torch.utils.deterministic as det
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def phase_train_encoder(torch) -> dict:
+    """The example ``repro_torch.examples.train_sparse_encoder`` at its
+    default flags, stage by stage, on the card: 2 steps against the CPU;
+    under deterministic algorithms the 300-step fit, timed, and a fit
+    stopped at step 150 then resumed to 300, which must equal it bit for
+    bit; a checkpoint's save; then the learned index and 16 encoded
+    queries through asc_retrieve, counted and held against the plain path
+    and (safe mode) brute force."""
+    import copy
+    import tempfile
+
+    from repro_torch.core.search import asc_retrieve, brute_force_topk
+    from repro_torch.examples import train_sparse_encoder as ex
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.sparse_encoder import (contrastive_loss,
+                                                   init_params)
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.tree import module_tree
+
+    t_phase = time.perf_counter()
+    cfg, steps, batch, seq = ex.setup(small=False, steps=TE_STEPS)
+    opt = ex.make_optimizer(steps)
+    sched = ex.schedule(steps)
+    lr_sum = sum(float(sched(i)) for i in range(TE_CHECK_STEPS))
+    on_cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    check = card_vs_cpu(
+        on_cpu, copy.deepcopy(on_cpu).to(DEVICE), contrastive_loss, opt,
+        ex.train_config(steps),
+        [ex.synth_pairs(cfg.vocab, seq, TE_CHECK_BATCH, s)
+         for s in range(TE_CHECK_STEPS)], lr_sum, "train_encoder", torch)
+    del on_cpu
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic(torch):
+        # the example's run, fit(300) with its checkpoint cadence, timed;
+        # under deterministic algorithms it is also the uninterrupted run
+        # the resumed one must equal
+        lines: list[str] = []
+        model = init_params(torch.Generator().manual_seed(0), cfg,
+                            device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = ex.train(model, steps, batch, seq, os.path.join(tmp, "run"),
+                        log_fn=lines.append)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated()
+        if not hist[-1]["loss"] < hist[0]["loss"]:
+            raise AssertionError(f"train_encoder: the loss did not fall: "
+                                 f"{lines}")
+        span = hist[-1]["step"] - hist[1]["step"]
+        step_ms = (hist[-1]["elapsed_s"] - hist[1]["elapsed_s"]) / span * 1e3
+
+        # resume: 150 steps, then a fit to 300 on the same directory
+        resumed_lines: list[str] = []
+        part = init_params(torch.Generator().manual_seed(0), cfg,
+                           device=DEVICE)
+        rdir = os.path.join(tmp, "resume")
+        ex.train(part, steps, batch, seq, rdir, run_steps=TE_RESUME_AT,
+                 log_fn=resumed_lines.append)
+        part = init_params(torch.Generator().manual_seed(0), cfg,
+                           device=DEVICE)
+        ex.train(part, steps, batch, seq, rdir, log_fn=resumed_lines.append)
+        if f"[fit] resumed from step {TE_RESUME_AT - 1}" not in resumed_lines:
+            raise AssertionError("train_encoder: the second fit did not "
+                                 "resume")
+        differ = [n for (n, a), b in zip(model.named_parameters(),
+                                         part.parameters())
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"train_encoder: the resumed run differs "
+                                 f"from the uninterrupted one in {differ}")
+        del part
+
+        # a checkpoint of the trained state: the host copy an async save
+        # makes on the training path, then a whole synchronous save
+        tree = {"step": steps - 1, "params": model,
+                "opt_state": opt.init(module_tree(model))}
+        mgr = CheckpointManager(os.path.join(tmp, "save"))
+        t0 = time.perf_counter()
+        mgr.save(steps - 1, tree, async_save=True)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        t0 = time.perf_counter()
+        mgr.save(steps, tree)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_mb = _dir_mb(os.path.join(tmp, "save", f"step_{steps:010d}"))
+        del tree
+
+    # the pipeline on the card, on the timed run's weights
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sparse_mat, dense_mat = ex.encode_corpus(model, seq)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = ex.learned_index(sparse_mat, dense_mat, cfg.vocab, DEVICE)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    queries = ex.encode_queries(model, seq)
+    kw = dict(k=10, mu=0.9, eta=1.0, bounds_impl="gemm", device=DEVICE)
+    asc_retrieve(index, queries, **kw)                      # warm
+    torch.cuda.synchronize()
+    k_log, p_log = [], []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_decisions(k_log):
+        out = asc_retrieve(index, queries, **kw)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    missing = [k for k in ("segment_bound_gemm", "plan_wave", "score_queue")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"train_encoder: asc_retrieve launched no "
+                             f"{missing}")
+    with swapped_wrappers(plain_versions), recorded_decisions(p_log):
+        plain = asc_retrieve(index, queries, **kw)
+    rows = [[(0, i)] if k_log else [] for i in range(out.doc_ids.shape[0])]
+    flips = check_audited(out, plain, k_log, p_log, rows,
+                          "train_encoder: learned index, kernel vs plain")
+    oracle = brute_force_topk(index, queries, 10, device=DEVICE)
+    safe = asc_retrieve(index, queries, **{**kw, "mu": 1.0})
+    check_topk(oracle.doc_ids.cpu(), oracle.scores.cpu(),
+               safe.doc_ids.cpu(), safe.scores.cpu(),
+               "train_encoder: safe mode vs brute force (16 queries)")
+    log("train_encoder", params=model.n_params(), vocab=cfg.vocab,
+        d_model=cfg.d_model, layers=cfg.n_layers, steps=steps, batch=batch,
+        seq=seq, card_vs_cpu=check,
+        loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"],
+        train_s=round(train_s, 3), step_ms=round(step_ms, 3),
+        timed_under="torch.use_deterministic_algorithms(True)",
+        pairs_per_s=round(batch / step_ms * 1e3, 1),
+        train_peak_mb=round(train_peak / 1e6, 1),
+        fit_lines=len(lines), resumed_equal=True,
+        resume_at=TE_RESUME_AT,
+        checkpoint=dict(mb=round(ckpt_mb, 2),
+                        async_host_copy_ms=round(snapshot_ms, 2),
+                        save_ms=round(save_ms, 2)),
+        encode_s=round(encode_s, 3), index_s=round(index_s, 3),
+        index_mb=round(index.nbytes() / 2**20, 2),
+        recall_at_10=ex.recall_at(out, oracle),
+        pct_clusters=float(out.n_scored_clusters.float().mean())
+        / ex.M_CLUSTERS * 100, serve_ms=round(serve_ms, 3),
+        counter_flips=flips, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# train_lm: OLMo-1B at its published widths
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "olmo-1b"
+LM_CHECK_DEPTH = 2          # card against CPU at full widths, this depth
+LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 128
+LM_CHECK_LR = 3e-4
+LM_MEMO_STEPS = 10          # then this many more on the same batch
+LM_MEMO_DROP = 1.0          # by which the loss must fall (nats)
+LM_STEPS, LM_BATCH, LM_SEQ = 10, 8, 512
+LM_CHANCE_BAND = 0.1        # the launcher's losses within this of ln V
+BF16_FLOP_S = 989e12        # H100 SXM dense bf16 peak (NVIDIA data sheet)
+
+
+def phase_train_lm(torch) -> dict:
+    """OLMo-1B: one step at depth 2 with the full widths (fp32) on the card
+    against the CPU, and 10 more on the same batch, over which the loss
+    must fall by a nat (the reference smoke test's criterion: it descends
+    on a repeated batch); then the training launcher at full width and
+    depth (bf16 compute on fp32 masters, remat) as a subprocess: exit 0,
+    ten finite losses within 0.1 of ln V. The launcher's synthetic stream
+    (the reference's ``lm_batch``) is uniform at three of four positions
+    and its bigram rule needs each of 50,304 tokens seen many times, so
+    ten steps of 4,096 tokens leave the loss at chance, ln 50304 = 10.826.
+    Step ms, tokens/s, MFU against the bf16 peak, peak memory."""
+    import copy
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import LMDataSpec, lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    full = get_arch(LM_ARCH).config()
+    cfg = dataclasses.replace(full, n_layers=LM_CHECK_DEPTH, dtype="float32")
+    t0 = time.perf_counter()
+    on_cpu = tf.init_params(torch.Generator().manual_seed(5), cfg,
+                            device="cpu")
+    init_s = time.perf_counter() - t0
+    b = {k: v[:, :LM_CHECK_SEQ] for k, v in lm_batch(
+        LMDataSpec(cfg.vocab, LM_CHECK_SEQ + 1, LM_CHECK_BATCH), 0).items()}
+    on_card = copy.deepcopy(on_cpu).to(DEVICE)
+    adam = opt_lib.adamw(opt_lib.constant_schedule(LM_CHECK_LR))
+    reset_launch_counts()
+    check = card_vs_cpu(on_cpu, on_card, tf.loss_fn, adam, TrainConfig(),
+                        [b], LM_CHECK_LR, "train_lm", torch)
+    check.update(params=on_cpu.n_params(), init_s=round(init_s, 2))
+    del on_cpu
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memo, _ = step_state(on_card, tf.loss_fn, adam, TrainConfig(),
+                         [b] * LM_MEMO_STEPS)
+    torch.cuda.synchronize()
+    memo_ms = (time.perf_counter() - t0) / LM_MEMO_STEPS * 1e3
+    launches = launch_counts()
+    memo_loss = [round(m["loss"], 4) for m in memo]
+    if not memo_loss[-1] < memo_loss[0] - LM_MEMO_DROP:
+        raise AssertionError(f"train_lm: the loss did not fall on a "
+                             f"repeated batch: {memo_loss}")
+    del on_card
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "train.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               LM_ARCH, "--preset", "full", "--steps", str(LM_STEPS),
+               "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+               "--metrics-json", metrics]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=ROOT, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train_lm: the launcher exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(metrics) as f:
+            m = json.load(f)
+    out = proc.stdout.splitlines()
+    if not out or not out[-1].startswith("[train] done: loss"):
+        raise AssertionError(f"train_lm: no done line: {out[-3:]}")
+    hist = m["history"]
+    chance = math.log(full.vocab)
+    if len(hist) != LM_STEPS or not all(
+            abs(h["loss"] - chance) < LM_CHANCE_BAND for h in hist):
+        raise AssertionError(f"train_lm: the launcher's losses are not "
+                             f"{LM_STEPS} finite values near ln V = "
+                             f"{chance:.4f}: {out}")
+    # every step is logged (log_every 1), and logging reads the loss back,
+    # so consecutive elapsed times are whole steps; steps 0-1 warm up
+    step_s = sorted(b["elapsed_s"] - a["elapsed_s"]
+                    for a, b in zip(hist[1:], hist[2:]))
+    median_s = step_s[len(step_s) // 2]
+    tokens = m["tokens_per_step"]
+    flops = 6.0 * m["param_count"] * tokens
+    log("train_lm", arch=LM_ARCH, card_vs_cpu=check,
+        repeated_batch=dict(losses=memo_loss, step_ms=round(memo_ms, 2)),
+        check_shape=dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                         d_ff=cfg.d_ff, vocab=cfg.vocab,
+                         batch=LM_CHECK_BATCH, seq=LM_CHECK_SEQ),
+        launcher=" ".join(cmd[1:]), launcher_s=round(run_s, 2),
+        params=m["n_params"], param_count=m["param_count"],
+        layers=full.n_layers, d_model=full.d_model, d_ff=full.d_ff,
+        vocab=full.vocab, dtype=full.dtype, remat=full.remat,
+        tokens_per_step=tokens, losses=[round(h["loss"], 4) for h in hist],
+        ln_vocab=round(chance, 4),
+        loss_fell=hist[-1]["loss"] < hist[0]["loss"],
+        step_ms_median=round(median_s * 1e3, 2),
+        step_ms=[round(x * 1e3, 2) for x in step_s],
+        tokens_per_s=round(tokens / median_s, 1),
+        model_flops_per_step=flops,
+        mfu=round(flops / median_s / BF16_FLOP_S, 4),
+        mfu_peak="989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+        peak_memory_mb=round(m["peak_memory_bytes"] / 1e6, 1),
+        launches=launches, seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -2344,7 +2732,7 @@ def superblock_plan_times(args, torch) -> dict:
 
 
 def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
-                  enc, torch) -> list[dict]:
+                  enc, te, tl, torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
     (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
@@ -2386,7 +2774,9 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                 "lifecycle": lc["launches"][name],
                 "frontend": fe["launches"][name],
                 "dist": [r[name] for r in dist["launches"]],
-                "encoder": enc["launches"][name]}
+                "encoder": enc["launches"][name],
+                "train_encoder": te["launches"][name],
+                "train_lm": tl["launches"][name]}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -2724,6 +3114,9 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
 
 def main() -> int:
     t_script = time.perf_counter()
+    # cuBLAS reads this when it first makes its handle; the train_encoder
+    # phase's deterministic resume check needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2753,8 +3146,10 @@ def main() -> int:
         phase_cli(index, fe, saved, torch)
         dist = phase_dist(geo, index, queries, fresh_ms, saved, torch)
     enc = phase_encoder(engine, index, torch)
+    te = phase_train_encoder(torch)
+    tl = phase_train_lm(torch)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                         dist, enc, torch)
+                         dist, enc, te, tl, torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

@@ -14,7 +14,7 @@ RoPE rotates the two halves of the head dim (not interleaved pairs).
 The reference's ``constrain`` calls (a sharding constraint under ambient
 logical-axis rules, a no-op without a mesh) and its ``*_axes`` tables of
 logical axis names are left out: nothing in the port shards a model
-yet, and logical-axis sharding comes with the training stack.
+yet; they come with ``distributed/sharding.py``.
 """
 
 from __future__ import annotations
@@ -23,17 +23,46 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 NORM_EPS = 1e-6
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dictionary as a module: tensors become
+    parameters, nested dicts child trees, under the same names, so
+    ``tree["attn"]["q_norm"]["scale"]`` reads as on the reference's dict
+    and ``named_parameters`` gives ``attn.q_norm.scale``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
 
 
 def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
                           dtype=torch.float32) -> torch.Tensor:
     """Normal truncated at two standard deviations, std
-    ``scale / sqrt(shape[0])``, as the reference's."""
+    ``scale / sqrt(shape[0])``, as the reference's: standard normals, each
+    one outside (-2, 2) drawn again until none is (about 5% the first
+    round; a fraction of the inverse-CDF route's time on a CPU)."""
     stddev = scale / max(1.0, (shape[0] if shape else 1)) ** 0.5
-    x = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32)
+    flat = x.view(-1)
+    redraw = (flat.abs() >= 2.0).nonzero().squeeze(1)
+    while redraw.numel():
+        flat[redraw] = torch.randn(redraw.numel(), generator=gen)
+        redraw = redraw[flat[redraw].abs() >= 2.0]
     return (x * stddev).to(dtype)
 
 

@@ -1,4 +1,4 @@
-"""SPLADE-like learned sparse encoder, forward pass (PyTorch port of
+"""SPLADE-like learned sparse encoder (PyTorch port of
 ``repro/models/sparse_encoder.py``).
 
 A bidirectional transformer encoder with a tied MLM head; the sparse
@@ -12,7 +12,12 @@ reference's names and layouts (``convert.encoder_params_from_arrays``
 carries a JAX parameter tree across). The MLM head ``x @ embed.T`` is a
 plain large product, left to ``torch.matmul`` as the reference leaves it
 to XLA; run it in fp32 with TF32 off for the card to agree with the CPU.
-Training (the optimizer and the fault-tolerant loop) is not ported yet.
+
+Training: in-batch-negative InfoNCE between query and document sparse
+vectors + SPLADE's FLOPS regularizer (``contrastive_loss``), differentiable
+by autograd; ``training/train_loop.fit`` trains it. The max-pooling is
+``amax``, which splits the gradient evenly between tied maxima, as
+``jnp.max`` does.
 """
 
 from __future__ import annotations
@@ -130,7 +135,7 @@ def encode(model: SparseEncoder, tokens: torch.Tensor,
 
 
 def contrastive_loss(model: SparseEncoder, batch: dict) -> torch.Tensor:
-    """In-batch InfoNCE + FLOPS regularizer (the forward value). batch:
+    """In-batch InfoNCE + FLOPS regularizer. batch:
     q_tokens/q_mask (B, S), d_tokens/d_mask (B, S); doc i is the positive
     of query i."""
     q = encode(model, batch["q_tokens"], batch["q_mask"])["sparse"]

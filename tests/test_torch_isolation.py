@@ -14,13 +14,17 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.convert import index_from_arrays, queries_from_arrays
+from repro_torch.configs import get_arch
+from repro_torch.convert import (index_from_arrays, lm_params_from_arrays,
+                                 queries_from_arrays, to_arrays)
 from repro_torch.core.index import build_index
 from repro_torch.core.search import SearchConfig, brute_force_topk, retrieve
 from repro_torch.core.types import INDEX_FIELDS
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
 from repro_torch.kernels import launch_counts, reset_launch_counts, wrappers
 from repro_torch.models.sparse_encoder import SparseEncConfig, init_params
+from repro_torch.models.transformer import init_cache
+from repro_torch.models.transformer import init_params as lm_init
 from repro_torch.serving.engine import RetrievalEngine, shard_index
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,6 +79,7 @@ def _tiny():
 
 def test_entry_points_default_to_the_card(no_card):
     docs, topic, index, queries = _tiny()
+    lm_cfg = get_arch("olmo-1b").smoke_config()
     cfg = SearchConfig(k=3)
     calls = [
         lambda: build_index(docs, topic, m=3, n_seg=2),
@@ -92,6 +97,11 @@ def test_entry_points_default_to_the_card(no_card):
                             SparseEncConfig(vocab=50, d_model=8,
                                             n_layers=1, n_heads=2,
                                             d_ff=16)),
+        lambda: lm_init(torch.Generator().manual_seed(0), lm_cfg),
+        lambda: init_cache(lm_cfg, 1, 4),
+        lambda: lm_params_from_arrays(
+            to_arrays(lm_init(torch.Generator(), lm_cfg, device="cpu")),
+            lm_cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
