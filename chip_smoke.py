@@ -179,11 +179,46 @@ nonzero and prints no result):
                ln V (its synthetic stream leaves ten steps at chance);
                step ms, tokens/s, MFU (6 N tokens over the step time over
                the 989 TFLOP/s bf16 peak) and peak memory.
+ 15. recsys_asc — ``repro_torch.examples.bert4rec_asc_retrieval`` at
+               BERT4Rec's published config (10^6 items, embed_dim 64,
+               seeded random weights): the catalog index built on the card
+               (m = 512, d_pad = 5,120, 4 segments; V = 128, t_pad = q_pad =
+               64), then, counts zeroed, the example's ``serve`` on four
+               64-user and three 2-user batches of ``bert4rec_batch`` (seq
+               200) at mu 1.0 and 0.9: K1, the planner, K2 and K4 must
+               launch; every result equals the on-card plain path
+               (``check_audited``) and rank-safe ASC brute force. A warm-up
+               batch of each size is held kernel by kernel against the
+               plain versions and each kernel timed at these shapes. Build
+               ms by step, index MB, batch ms, clusters and items scored a
+               query, recall@10 against index-exact and the dense dot
+               product (reported, not gated);
+ 16. recsys  — DLRM, DIN, DeepFM and BERT4Rec: at the smoke config the
+               forward and a 256-candidate retrieval on the card equal the
+               CPU's on the same weights; at the published configs (DLRM's
+               53.2 GB table drawn on the card from a CUDA generator) a
+               forward at batch 2,048 and a 65,536-candidate retrieval,
+               finite, timed: ms, lookups a second, peak memory;
+ 17. train_recsys — each recsys arch: two AdamW steps at the smoke config
+               on the card against the CPU, then ``python -m
+               repro_torch.launch.train`` as a subprocess for 10 steps
+               (``--preset full``; DLRM at ``smoke``, since its full table
+               and a dense gradient of the same size pass 80 GB before
+               AdamW's moments) under deterministic algorithms: ten finite
+               losses; step 9's checkpoint set aside and the launcher run
+               again resumes from step 4, prints the same steps 5-9 and
+               writes a step-9 checkpoint equal bit for bit;
+ 18. train_gnn — MeshGraphNet: the same at its full preset (15 layers, d
+               128), then one forward at full width on a
+               ``NeighborSampler`` subgraph (fanout 15, 10; 1,024 seeds over
+               a 10^6-node CSR), timed.
 
-Phases 8–14 run after the lifecycle phase and before the kernels phase.
+Phases 8–18 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
 (``path_launches``: serve, superblock, pipelined, lifecycle, frontend,
-dist (one count a rank), encoder, train_encoder, train_lm).
+dist (one count a rank), encoder, train_encoder, train_lm, recsys_asc,
+recsys, train_recsys, train_gnn) and, under ``catalog``, its times at
+the recsys_asc phase's shapes.
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -1097,15 +1132,16 @@ def timed_methods(spec: dict):
             setattr(cls, name, fn)
 
 
-def hold_kernels(run, torch) -> dict:
+def hold_kernels(run, torch, calls: list | None = None) -> dict:
     """Run ``run()`` once with every kernel wrapper recording its calls,
     then hold each recorded call's kernel output against its plain version
     on the same inputs: the planner's queues exactly, bounds and scores to
     RTOL with NEG positions exact. These launches are comparisons: the
-    caller counts only its own searches."""
+    caller counts only its own searches. ``calls`` (if given) receives the
+    recorded (name, wrapper, args, kwargs)."""
     from repro_torch.kernels.score_cluster_batch.ref import NEG
     from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
-    calls = []
+    calls = [] if calls is None else calls
 
     def recorder(name, fn):
         def rec(*a, **kw):
@@ -2350,7 +2386,7 @@ def step_state(model, loss_fn, opt, tcfg, batches) -> tuple:
 
 
 def card_vs_cpu(on_cpu, on_card, loss_fn, opt, tcfg, batches, lr_sum,
-                what: str, torch) -> dict:
+                what: str, torch, cancel_floor: float = 0.0) -> dict:
     """The same steps on the CPU and on the card (fp32, TF32 off), from
     the same weights: loss and grad norm each step to rtol 1e-4, the first
     moment (0.1 x the clipped gradient, summed over steps) per tensor to
@@ -2360,7 +2396,15 @@ def card_vs_cpu(on_cpu, on_card, loss_fn, opt, tcfg, batches, lr_sum,
     of the largest entry was seen), the parameters to atol 2 x the steps'
     learning rates summed (a first AdamW step moves a weight by about
     lr x sign(g); rounding can tip it where g is near zero). Returns the
-    largest differences."""
+    largest differences.
+
+    ``cancel_floor`` > 0: a tensor whose largest first-moment entry on
+    the CPU is below ``cancel_floor`` x the model's largest is a gradient
+    that is zero in exact arithmetic (DIN's attention logits go through a
+    softmax, which ignores a shift, so the attention MLP's output bias
+    gets none: 7.3e-12 on the CPU against 0 on the card was seen). Its
+    per-tensor scale is rounding noise, so for it both devices must stay
+    within ``cancel_floor`` x the model's largest entry of zero."""
     from repro_torch.training.tree import leaves
     t0 = time.perf_counter()
     m_cpu, s_cpu = step_state(on_cpu, loss_fn, opt, tcfg, batches)
@@ -2375,9 +2419,18 @@ def card_vs_cpu(on_cpu, on_card, loss_fn, opt, tcfg, batches, lr_sum,
                 raise AssertionError(f"{what}: step {i} {k} on the card "
                                      f"{a[k]} against {c[k]} on the CPU")
     mu_rel = 0.0
+    cancelled = []
+    floor = cancel_floor * max(float(c.abs().max())
+                               for c in leaves(s_cpu["mu"]))
     for i, (a, c) in enumerate(zip(leaves(s_card["mu"]),
                                    leaves(s_cpu["mu"]))):
         a, top = a.cpu(), float(c.abs().max())
+        if top < floor:
+            if float(a.abs().max()) > floor:
+                raise AssertionError(f"{what}: first moment {i} is zero on "
+                                     f"the CPU, not on the card")
+            cancelled.append(i)
+            continue
         if not torch.allclose(a, c, rtol=1e-3, atol=1e-3 * top):
             raise AssertionError(f"{what}: first moment {i} differs")
         mu_rel = max(mu_rel, float((a - c).abs().max()) / max(top, 1e-30))
@@ -2395,6 +2448,7 @@ def card_vs_cpu(on_cpu, on_card, loss_fn, opt, tcfg, batches, lr_sum,
                     abs(a["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
                     for a, c in zip(m_card, m_cpu)),
                 mu_err_of_max=mu_rel, param_max_abs_err=p_err,
+                **({"cancelled_leaves": cancelled} if cancel_floor else {}),
                 param_atol=2 * lr_sum + 1e-7, cpu_s=round(cpu_s, 2),
                 card_s=round(card_s, 2))
 
@@ -2687,6 +2741,553 @@ def phase_train_lm(torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# recsys_asc: BERT4Rec's published catalog served through ASC
+# ---------------------------------------------------------------------------
+
+RA_M = 512                  # about 1,953 items a cluster (MS MARCO: 2,148)
+RA_D_PAD = 5120             # the example's 2.5x headroom, rounded up to 512
+RA_BATCHES = 4              # 64-user batches (K1, the planner, K2)
+RA_SMALL = 3                # 2-user batches (the per-query route: K1, K4)
+RA_SEED = SEED + 40
+
+
+def catalog_kernel_times(calls: list, torch) -> dict:
+    """Each kernel's first recorded call on the catalog path (K1's first
+    at each batch size) timed against its plain version on the same
+    inputs, with the shapes the catalog gives it."""
+    from repro_torch.tools.plain_path import plain_versions
+    first: dict = {}
+    for name, fn, a, kw in calls:
+        key = (f"{name} Q={a[1].n_queries}" if name == "segment_bound_gemm"
+               else name)
+        first.setdefault(key, (name, fn, a, kw))
+    out = {}
+    for key, (name, fn, a, kw) in sorted(first.items()):
+        plain = plain_versions(name, fn)
+        row = dict(ms=time_ms(lambda: fn(*a, **kw)),
+                   plain_ms=time_ms(lambda: plain(*a, **kw)))
+        if name == "segment_bound_gemm":
+            table, terms = a[0], a[1]
+            row["shape"] = dict(S=table.shape[0], V=table.shape[1],
+                                Q=terms.n_queries, q_pad=terms.q_pad,
+                                nnz=int(terms.count.sum()))
+        elif name == "score_admitted":
+            terms, plan = a[4], a[5]
+            row["shape"] = dict(
+                n_q=terms.n_queries, G=plan.cids.shape[0], n_qb=plan.n_qb,
+                n_db=plan.n_db, block_q=plan.block_q, block_d=plan.block_d,
+                union_terms=terms.n_union.tolist(),
+                entries=terms.term_ptr[:, -1].tolist(),
+                n_words=terms.n_words, walked_docs=int(plan.walked_docs()))
+        elif name == "plan_wave_kernel":
+            row["shape"] = dict(n_q=a[2].shape[0], G=a[0].shape[0],
+                                n_seg=a[3].shape[-1], block_q=a[4],
+                                block_d=a[7])
+        else:
+            row["shape"] = dict(G=a[4].shape[0], d_pad=a[0].shape[1],
+                                t_pad=a[0].shape[2],
+                                q_terms=int(a[6].count[a[7]]))
+        out[key] = row
+    return out
+
+
+def phase_recsys_asc(torch) -> dict:
+    """``repro_torch.examples.bert4rec_asc_retrieval`` at BERT4Rec's
+    published config (10^6 items, embed_dim 64, seeded random weights):
+    the catalog index (m = 512, d_pad = 5,120, 4 segments) built on the
+    card and timed by step; then, counts zeroed, the example's ``serve``
+    on 4 batches of 64 users and 3 of 2 (``bert4rec_batch`` at seq 200),
+    ASC at mu 1.0 and 0.9 beside brute force and the dense dot product.
+    Every kernel of the main path must launch; every ASC result equals
+    the on-card plain path (``check_audited``) and rank-safe ASC equals
+    brute force. A warm-up batch of each size is held kernel by kernel
+    against the plain versions and each kernel is timed at the catalog's
+    shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.search import asc_retrieve
+    from repro_torch.data.pipeline import bert4rec_batch
+    from repro_torch.examples import bert4rec_asc_retrieval as ex
+    from repro_torch.kernels import (MAIN_PATH, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models.recsys import bert4rec_init
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("bert4rec").config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = bert4rec_init(torch.Generator(device=DEVICE).manual_seed(RA_SEED),
+                          cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    build: dict = {}
+    index = ex.build_catalog_index(cfg, model, RA_M, RA_D_PAD,
+                                   torch.Generator().manual_seed(RA_SEED + 1),
+                                   DEVICE, timings=build)
+    build_peak = torch.cuda.max_memory_allocated()
+    item_emb = ex.item_embeddings(model)
+    placed = int(index.doc_mask.sum())
+    if placed != cfg.n_items or int(index.cluster_ndocs.max()) > RA_D_PAD:
+        raise AssertionError(f"recsys_asc: {placed} items placed of "
+                             f"{cfg.n_items}, or a cluster over d_pad")
+    batches = ([(f"users64_{i}", bert4rec_batch(cfg, 64, i, seed=RA_SEED))
+                for i in range(RA_BATCHES)]
+               + [(f"users2_{i}", bert4rec_batch(cfg, 2, 100 + i,
+                                                 seed=RA_SEED))
+                  for i in range(RA_SMALL)])
+
+    def serve_all(which, record=False):
+        out = []
+        for name, b in which:
+            hidden, queries = ex.encode_users(model, b)
+            log_k: list = []
+            lines: list = []
+            with (recorded_decisions(log_k) if record else
+                  contextlib.nullcontext()):
+                res = ex.serve(index, queries, hidden, item_emb, DEVICE,
+                               log=lines.append)
+            out.append((name, hidden, queries, res, log_k, lines))
+        return out
+
+    # warm-up, not counted: one batch of each size, every kernel call held
+    # against its plain version and recorded for the timings
+    calls: list = []
+    held = hold_kernels(lambda: serve_all([batches[0], batches[-1]]), torch,
+                        calls)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = serve_all(batches, record=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"recsys_asc: kernels never launched on the "
+                             f"catalog path: {missing}")
+
+    flips, per_batch = [], []
+    for name, hidden, queries, res, k_log, lines in runs:
+        n_q = queries.n_queries
+        if n_q >= 4 and len(k_log) != len(ex.MUS):
+            raise AssertionError(f"recsys_asc {name}: {len(k_log)} walks "
+                                 f"recorded for {len(ex.MUS)} searches")
+        row = {"batch": name, "n_q": n_q}
+        for j, mu in enumerate(ex.MUS):
+            got = res["asc"][mu]
+            if not (bool(torch.isfinite(got.scores).all())
+                    and bool((got.doc_ids >= 0).all())):
+                raise AssertionError(f"recsys_asc {name} mu={mu}: "
+                                     f"non-finite scores or missing ids")
+            p_log: list = []
+            with swapped_wrappers(plain_versions), \
+                    recorded_decisions(p_log):
+                plain = asc_retrieve(index, queries, k=ex.K, mu=mu, eta=1.0,
+                                     bounds_impl="gemm", device=DEVICE)
+            kl = [k_log[j]] if k_log else []
+            rows = [[(0, i)] if kl else [] for i in range(n_q)]
+            flips += check_audited(got, plain, kl, p_log, rows,
+                                   f"recsys_asc {name} mu={mu}: kernel "
+                                   f"vs plain")
+            # the batch's time alone (warm), beside what it scored
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            asc_retrieve(index, queries, k=ex.K, mu=mu, eta=1.0,
+                         bounds_impl="gemm", device=DEVICE)
+            torch.cuda.synchronize()
+            row[f"mu{mu}"] = dict(
+                ms=round((time.perf_counter() - t0) * 1e3, 3),
+                clusters_a_query=float(got.n_scored_clusters.float()
+                                       .mean()),
+                items_a_query=float(got.n_scored_docs.float().mean()),
+                recall_vs_index=res["recall"][mu][0],
+                recall_vs_dense=res["recall"][mu][1])
+        oracle, safe = res["oracle"], res["asc"][1.0]
+        check_topk(oracle.doc_ids.cpu(), oracle.scores.cpu(),
+                   safe.doc_ids.cpu(), safe.scores.cpu(),
+                   f"recsys_asc {name}: mu = eta = 1 vs brute force")
+        per_batch.append(row)
+    big = [r for r in per_batch if r["n_q"] == 64]
+
+    def mean(key, mu):
+        return float(np.mean([r[f"mu{mu}"][key] for r in big]))
+
+    kernels = catalog_kernel_times(calls, torch)
+    log("recsys_asc", items=cfg.n_items, embed_dim=cfg.embed_dim,
+        vocab=index.vocab, t_pad=index.t_pad, m=index.m, d_pad=index.d_pad,
+        n_seg=index.n_seg, seg_max_shape=list(index.seg_max_stacked.shape),
+        index_mb=round(index.nbytes() / 1e6, 1),
+        init_ms=round(init_ms, 2),
+        build_ms={k: round(v, 2) for k, v in build.items()},
+        build_peak_mb=round(build_peak / 1e6, 1),
+        items_a_cluster=float(index.cluster_ndocs.float().mean()),
+        max_cluster=int(index.cluster_ndocs.max()),
+        min_cluster=int(index.cluster_ndocs.min()),
+        mean_query_terms=float(runs[0][2].mask.sum(1).float().mean()),
+        serve_s=round(serve_s, 3), batches=per_batch,
+        summary={f"mu{mu}": dict(
+            batch64_ms=mean("ms", mu),
+            clusters_a_query=mean("clusters_a_query", mu),
+            items_a_query=mean("items_a_query", mu),
+            recall_vs_index=mean("recall_vs_index", mu),
+            recall_vs_dense=mean("recall_vs_dense", mu))
+            for mu in ex.MUS},
+        counter_flips=flips, held=held, kernels=kernels, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches, "kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
+# recsys: the four archs at their published configs
+# ---------------------------------------------------------------------------
+
+RS_BATCH = 2048             # examples a forward pass
+RS_CANDIDATES = 65_536      # the retrieval_cand block
+RS_CHECK_BATCH = 16         # card against CPU at the smoke config
+RS_SEED = SEED + 50
+RS_BATCH_FNS = {"dlrm-mlperf": "dlrm_batch", "din": "din_batch",
+                "deepfm": "deepfm_batch", "bert4rec": "bert4rec_batch"}
+
+
+def rs_retrieval_batch(arch: str, cfg, n_cand: int, seed: int, torch):
+    """One user's context (batch row 0 of the arch's batch maker) and a
+    block of ``n_cand`` random candidates (CPU tensors)."""
+    from repro_torch.data import pipeline as pl
+    b = getattr(pl, RS_BATCH_FNS[arch])(cfg, 1, 0, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    if arch == "din":
+        return {**{k: b[k] for k in ("hist_items", "hist_cates",
+                                     "hist_mask")},
+                "cand_items": torch.randint(0, cfg.n_items, (n_cand,),
+                                            generator=g),
+                "cand_cates": torch.randint(0, cfg.n_cates, (n_cand,),
+                                            generator=g)}
+    if arch == "dlrm-mlperf":
+        keep, rows = ("dense", "sparse"), cfg.vocab_per_table
+    elif arch == "deepfm":
+        keep, rows = ("fields",), cfg.vocab_per_field
+    else:
+        keep, rows = ("items", "mask"), cfg.n_items
+    return {**{k: b[k] for k in keep},
+            "cand_ids": torch.randint(0, rows, (n_cand,), generator=g)}
+
+
+def rs_lookups(arch: str, cfg, n: int, retrieval: bool) -> int:
+    """Embedding rows a call gathers: ``n`` examples (or candidates)."""
+    if arch == "dlrm-mlperf":
+        return n * cfg.n_sparse
+    if arch == "din":
+        return n * 2 * (cfg.seq_len + 1)
+    if arch == "deepfm":
+        return n * cfg.n_fields * 2          # the embedding and w1 rows
+    return n + cfg.seq_len if retrieval else n * cfg.seq_len
+
+
+def phase_recsys(torch) -> dict:
+    """Each recsys arch: at its smoke config, the forward and a 256-
+    candidate retrieval on the card against the CPU on the same weights
+    (rtol 1e-4, atol 1e-5); at its published config, weights drawn on the
+    card from a CUDA generator (DLRM's 26 x 4M x 128 table is 53.2 GB),
+    a forward pass at batch 2,048 and ``*_retrieval`` against 65,536
+    candidates, timed, with finite outputs of the right shapes. Reports
+    ms, embedding lookups a second and peak memory."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline as pl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.recsys import RECSYS
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    out = {}
+    for i, (arch, (init, fwd, _, retrieval)) in enumerate(RECSYS.items()):
+        mod = get_arch(arch)
+        make = getattr(pl, RS_BATCH_FNS[arch])
+        small = mod.smoke_config()
+        on_cpu = init(torch.Generator().manual_seed(RS_SEED + i), small,
+                      device="cpu")
+        on_card = copy.deepcopy(on_cpu).to(DEVICE)
+        b = make(small, RS_CHECK_BATCH, 0, seed=RS_SEED)
+        rb = rs_retrieval_batch(arch, small, 256, RS_SEED, torch)
+        errs = {}
+        with torch.no_grad():
+            for what, fn, batch in (("forward", fwd, b),
+                                    ("retrieval", retrieval, rb)):
+                got, want = fn(on_card, batch).cpu(), fn(on_cpu, batch)
+                if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"recsys {arch}: {what} on the "
+                                         f"card differs from the CPU")
+                errs[what] = float((got - want).abs().max())
+        del on_cpu, on_card
+
+        cfg = mod.config()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init(torch.Generator(device=DEVICE).manual_seed(RS_SEED + i),
+                     cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        b = {k: v.to(DEVICE) for k, v in make(cfg, RS_BATCH, 0,
+                                             seed=RS_SEED).items()}
+        rb = {k: v.to(DEVICE) for k, v in rs_retrieval_batch(
+            arch, cfg, RS_CANDIDATES, RS_SEED, torch).items()}
+        with torch.no_grad():
+            y = fwd(model, b)
+            scores = retrieval(model, rb)
+            want_y = ((RS_BATCH, cfg.seq_len, cfg.embed_dim)
+                      if arch == "bert4rec" else (RS_BATCH,))
+            if (tuple(y.shape) != want_y
+                    or tuple(scores.shape) != (RS_CANDIDATES,)
+                    or not bool(torch.isfinite(y).all())
+                    or not bool(torch.isfinite(scores).all())):
+                raise AssertionError(f"recsys {arch}: outputs of shape "
+                                     f"{tuple(y.shape)}, "
+                                     f"{tuple(scores.shape)} or not finite")
+            fwd_ms = time_ms(lambda: fwd(model, b))
+            ret_ms = time_ms(lambda: retrieval(model, rb))
+        peak = torch.cuda.max_memory_allocated()
+        out[arch] = dict(
+            card_vs_cpu_smoke=errs, params=model.n_params(),
+            table_gb=round(sum(p.numel() * 4 for n, p in
+                               model.named_parameters()
+                               if n in ("tables", "item_emb", "cate_emb",
+                                        "emb", "w1")) / 1e9, 2),
+            init_s=round(init_s, 3), batch=RS_BATCH,
+            forward_ms=round(fwd_ms, 4),
+            forward_lookups_per_s=round(
+                rs_lookups(arch, cfg, RS_BATCH, False) / fwd_ms * 1e3),
+            candidates=RS_CANDIDATES, retrieval_ms=round(ret_ms, 4),
+            retrieval_lookups_per_s=round(
+                rs_lookups(arch, cfg, RS_CANDIDATES, True) / ret_ms * 1e3),
+            candidates_per_s=round(RS_CANDIDATES / ret_ms * 1e3),
+            peak_memory_mb=round(peak / 1e6, 1))
+        del model, b, rb, y, scores
+        torch.cuda.empty_cache()
+    launches = launch_counts()
+    log("recsys", archs=out, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# train_recsys and train_gnn: the launcher's recsys and gnn branches
+# ---------------------------------------------------------------------------
+
+TR_STEPS = 10
+TR_CHECK_LR = 3e-4
+TR_CANCEL_FLOOR = 1e-6      # card_vs_cpu: gradients zero in exact arithmetic
+# the launcher in a subprocess under deterministic algorithms (the resume
+# must equal the uninterrupted run bit for bit); its flags follow
+DET_LAUNCH = ("import sys, torch\n"
+              "import torch.utils.deterministic as det\n"
+              "torch.use_deterministic_algorithms(True)\n"
+              "det.fill_uninitialized_memory = False\n"
+              "from repro_torch.launch.train import main\n"
+              "main(sys.argv[1:])\n")
+TR_PRESETS = {"bert4rec": "full", "din": "full", "deepfm": "full",
+              # at full width the 53.2 GB table and a dense gradient of the
+              # same size pass 80 GB before AdamW's two moments
+              "dlrm-mlperf": "smoke", "meshgraphnet": "full"}
+
+
+def _arrays(step_dir: str) -> list:
+    with np.load(os.path.join(step_dir, "arrays.npz")) as z:
+        return [z[f"a{i}"] for i in range(len(z.files))]
+
+
+def launch_and_resume(arch: str, torch) -> dict:
+    """``python -m repro_torch.launch.train`` for ``arch`` at its preset
+    as a subprocess, 10 steps with a checkpoint directory (saves after
+    steps 4 and 9): exit 0, ten finite losses and the done line. Then
+    step 9's checkpoint is moved aside and the launcher, called again (in
+    this process, deterministic algorithms on), resumes from step 4: its
+    steps 5-9 print the first run's lines, and its step-9 checkpoint
+    equals the first run's bit for bit."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as t_launch
+    preset = TR_PRESETS[arch]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, metrics = os.path.join(tmp, "ckpt"), os.path.join(tmp, "m.json")
+        argv = ["--arch", arch, "--preset", preset, "--steps", str(TR_STEPS),
+                "--ckpt-dir", ckpt, "--device", DEVICE]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", DET_LAUNCH, *argv, "--metrics-json",
+             metrics], capture_output=True, text=True, cwd=ROOT, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train {arch}: the launcher exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(metrics) as f:
+            m = json.load(f)
+        lines = proc.stdout.splitlines()
+        hist = m["history"]
+        if (len(hist) != TR_STEPS or not lines[-1].startswith(
+                "[train] done: loss")
+                or not all(math.isfinite(h["loss"]) for h in hist)):
+            raise AssertionError(f"train {arch}: not {TR_STEPS} finite "
+                                 f"losses and a done line: {lines[-3:]}")
+        last = os.path.join(ckpt, f"step_{TR_STEPS - 1:010d}")
+        first = os.path.join(tmp, "first")
+        shutil.move(last, first)
+        again = io.StringIO()
+        t0 = time.perf_counter()
+        with deterministic(torch), contextlib.redirect_stdout(again):
+            t_launch.main(argv)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        again = again.getvalue().splitlines()
+        if again[0] != "[fit] resumed from step 4" or again[1:-1] != \
+                lines[5:-1]:
+            raise AssertionError(f"train {arch}: the resumed run printed "
+                                 f"{again} against {lines}")
+        a, b = _arrays(first), _arrays(last)
+        differ = [i for i, (x, y) in enumerate(zip(a, b, strict=True))
+                  if x.dtype != y.dtype or x.tobytes() != y.tobytes()]
+        if differ:
+            raise AssertionError(f"train {arch}: the resumed checkpoint "
+                                 f"differs from the uninterrupted one in "
+                                 f"arrays {differ}")
+        ckpt_mb = _dir_mb(first)
+    steps = sorted(y["elapsed_s"] - x["elapsed_s"]
+                   for x, y in zip(hist[1:], hist[2:]))
+    median = steps[len(steps) // 2]
+    return dict(preset=preset, launcher_s=round(run_s, 2),
+                resume_s=round(resume_s, 2), resumed_equal=True,
+                checkpoint_arrays=len(a), checkpoint_mb=round(ckpt_mb, 2),
+                n_params=m["n_params"],
+                losses=[round(h["loss"], 4) for h in hist],
+                step_ms_median=round(median * 1e3, 3),
+                per_step={k: v for k, v in m.items() if k.endswith(
+                    "_per_step")},
+                peak_memory_mb=round(m["peak_memory_bytes"] / 1e6, 1))
+
+
+def phase_train_recsys(torch) -> dict:
+    """The four recsys archs through the training launcher: two AdamW
+    steps at the smoke config on the card against the CPU
+    (``card_vs_cpu``), then ``launch_and_resume`` at ``TR_PRESETS``
+    (DLRM at its smoke preset: at full width its table and a dense
+    gradient of the same size pass 80 GB before AdamW's moments)."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline as pl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.recsys import RECSYS
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    out = {}
+    for i, (arch, (init, _, loss_fn, _)) in enumerate(RECSYS.items()):
+        cfg = get_arch(arch).smoke_config()
+        make = getattr(pl, RS_BATCH_FNS[arch])
+        on_cpu = init(torch.Generator().manual_seed(RS_SEED + i), cfg,
+                      device="cpu")
+        check = card_vs_cpu(
+            on_cpu, copy.deepcopy(on_cpu).to(DEVICE), loss_fn,
+            opt_lib.adamw(opt_lib.constant_schedule(TR_CHECK_LR)),
+            TrainConfig(), [make(cfg, RS_CHECK_BATCH, s) for s in range(2)],
+            2 * TR_CHECK_LR, f"train_recsys {arch}", torch,
+            cancel_floor=TR_CANCEL_FLOOR)
+        out[arch] = {"card_vs_cpu_smoke": check,
+                     **launch_and_resume(arch, torch)}
+        torch.cuda.empty_cache()
+    launches = launch_counts()
+    log("train_recsys", archs=out, steps=TR_STEPS,
+        dlrm_preset_note="smoke: at full width the 53.2 GB table plus a "
+        "dense gradient of the same size exceed 80 GB before AdamW's "
+        "moments", launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+GNN_SEEDS = 1024            # NeighborSampler: seeds a subgraph
+GNN_FANOUT = (15, 10)
+GNN_CSR_NODES = 1_000_000
+GNN_CSR_DEGREE = 15
+
+
+def phase_train_gnn(torch) -> dict:
+    """MeshGraphNet (``configs/meshgraphnet.py``): two AdamW steps at the
+    smoke config on the card against the CPU, ``launch_and_resume`` at the
+    full preset (15 layers, d 128, the launcher's 256-node, 1,024-edge
+    graphs), and one forward at full width on a ``NeighborSampler``
+    subgraph (fanout 15, 10; 1,024 seeds over a 10^6-node CSR), timed,
+    finite, with the sampler's slot geometry."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline as pl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    small = get_arch("meshgraphnet").smoke_config()
+    spec = pl.GraphSpec(256, 1024, small.node_in, small.edge_in,
+                        small.node_out)
+    on_cpu = gnn.init_params(torch.Generator().manual_seed(RS_SEED), small,
+                             device="cpu")
+    check = card_vs_cpu(
+        on_cpu, copy.deepcopy(on_cpu).to(DEVICE), gnn.loss_fn,
+        opt_lib.adamw(opt_lib.constant_schedule(TR_CHECK_LR)), TrainConfig(),
+        [pl.random_graph(spec, s) for s in range(2)], 2 * TR_CHECK_LR,
+        "train_gnn", torch, cancel_floor=TR_CANCEL_FLOOR)
+    launched = launch_and_resume("meshgraphnet", torch)
+
+    cfg = get_arch("meshgraphnet").config()
+    t0 = time.perf_counter()
+    indptr, indices = pl.NeighborSampler.random_csr(
+        GNN_CSR_NODES, GNN_CSR_DEGREE, seed=RS_SEED)
+    sampler = pl.NeighborSampler(indptr, indices, fanout=GNN_FANOUT,
+                                 seed=RS_SEED)
+    g = pl.sampled_subgraph_batch(sampler, GNN_SEEDS, cfg.node_in,
+                                  cfg.edge_in, cfg.node_out, 0)
+    sample_s = time.perf_counter() - t0
+    n_nodes = GNN_SEEDS * (1 + GNN_FANOUT[0] + GNN_FANOUT[0] * GNN_FANOUT[1])
+    if g["node_feat"].shape[0] != n_nodes:
+        raise AssertionError(f"train_gnn: {g['node_feat'].shape[0]} node "
+                             f"slots, expected {n_nodes}")
+    model = gnn.init_params(torch.Generator().manual_seed(RS_SEED), cfg,
+                            device=DEVICE)
+    g = {k: v.to(DEVICE) for k, v in g.items()}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y = gnn.forward(model, g)
+        if tuple(y.shape) != (n_nodes, cfg.node_out) or not bool(
+                torch.isfinite(y).all()):
+            raise AssertionError("train_gnn: the subgraph forward is not "
+                                 "finite or has the wrong shape")
+        fwd_ms = time_ms(lambda: gnn.forward(model, g))
+    launches = launch_counts()
+    log("train_gnn", card_vs_cpu_smoke=check, launcher=launched,
+        subgraph=dict(csr_nodes=GNN_CSR_NODES, avg_degree=GNN_CSR_DEGREE,
+                      seeds=GNN_SEEDS, fanout=list(GNN_FANOUT),
+                      nodes=n_nodes, edges=int(g["senders"].numel()),
+                      live_edges=int(g["edge_mask"].sum()),
+                      sample_s=round(sample_s, 3),
+                      forward_ms=round(fwd_ms, 3),
+                      nodes_per_s=round(n_nodes / fwd_ms * 1e3),
+                      peak_memory_mb=round(
+                          torch.cuda.max_memory_allocated() / 1e6, 1)),
+        layers=cfg.n_layers, d_hidden=cfg.d_hidden, params=model.n_params(),
+        launches=launches, seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -2732,12 +3333,13 @@ def superblock_plan_times(args, torch) -> dict:
 
 
 def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
-                  enc, te, tl, torch) -> list[dict]:
+                  enc, te, tl, ra, rs, tr, tg, torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
     (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
-    superblock wave width. Each row's ``launches`` is the serve phase's
-    count, ``path_launches`` every phase's."""
+    superblock wave width, ``ra`` (recsys_asc) each kernel's times at the
+    catalog's shapes. Each row's ``launches`` is the serve phase's count,
+    ``path_launches`` every phase's."""
     from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
@@ -2776,7 +3378,14 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                 "dist": [r[name] for r in dist["launches"]],
                 "encoder": enc["launches"][name],
                 "train_encoder": te["launches"][name],
-                "train_lm": tl["launches"][name]}
+                "train_lm": tl["launches"][name],
+                "recsys_asc": ra["launches"][name],
+                "recsys": rs["launches"][name],
+                "train_recsys": tr["launches"][name],
+                "train_gnn": tg["launches"][name]}
+
+    def catalog(*keys):
+        return {k: ra["kernels"][k] for k in keys if k in ra["kernels"]}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -2846,7 +3455,9 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                                "bound_by", "library_ms", "device_ms")},
         dense_bound_ms=big["dense_bound_ms"],
         table_stream_ms=big["table_stream_ms"], shape=big["shape"],
-        small_batch=small, level0=lvl))
+        small_batch=small, level0=lvl,
+        catalog=catalog("segment_bound_gemm Q=64",
+                        "segment_bound_gemm Q=2")))
 
     # ---- K2: the executor ------------------------------------------------
     (tids, tw, dseg, dmask, terms, plan, scale), kw = \
@@ -2934,7 +3545,8 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                    block_d=bd, n_tiles=int(plan.n_tiles),
                    n_blocks=int(plan.n_blocks),
                    walked_docs=int(plan.walked_docs())),
-        path_launches=path_launches("score_queue")))
+        path_launches=path_launches("score_queue"),
+        catalog=catalog("score_admitted")))
     # the first walked superblock's wave: G = cap member tiles
     (s_args, s_kw) = sb["captured"]["score_admitted"]
     s_plan = s_args[5]
@@ -3022,6 +3634,7 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                    n_qb=plan.n_qb, run_slots=plan.drun_start.shape[-1],
                    n_tiles=int(plan.n_tiles), io_bytes=io_bytes),
         path_launches=path_launches("plan_wave"),
+        catalog=catalog("plan_wave_kernel"),
         superblock={**superblock_plan_times(sb_waves[0], torch),
                     "waves_checked": len(sb_waves)},
         compact_front=dict(
@@ -3093,6 +3706,7 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
         replaces="src/repro/kernels/score_docs/score_docs.py:40",
         launches=launches["score_clusters"], max_abs_err=err,
         path_launches=path_launches("score_clusters"),
+        catalog=catalog("score_clusters"),
         ms=time_ms(k4), device_ms=device_ms(k4), plain_ms=time_ms(k4_plain),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
@@ -3148,8 +3762,12 @@ def main() -> int:
     enc = phase_encoder(engine, index, torch)
     te = phase_train_encoder(torch)
     tl = phase_train_lm(torch)
+    ra = phase_recsys_asc(torch)
+    rs = phase_recsys(torch)
+    tr = phase_train_recsys(torch)
+    tg = phase_train_gnn(torch)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                         dist, enc, te, tl, torch)
+                         dist, enc, te, tl, ra, rs, tr, tg, torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

@@ -16,17 +16,17 @@ ARCHS = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "asc-splade": "repro_torch.configs.asc_splade",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "din": "repro_torch.configs.din",
+    "deepfm": "repro_torch.configs.deepfm",
+    "bert4rec": "repro_torch.configs.bert4rec",
 }
 
 # id -> (kind, the port module its model needs)
 NOT_PORTED = {
     "llama4-scout-17b-a16e": ("lm", "repro_torch/models/moe.py"),
     "olmoe-1b-7b": ("lm", "repro_torch/models/moe.py"),
-    "meshgraphnet": ("gnn", "repro_torch/models/gnn.py"),
-    "dlrm-mlperf": ("recsys", "repro_torch/models/recsys.py"),
-    "din": ("recsys", "repro_torch/models/recsys.py"),
-    "deepfm": ("recsys", "repro_torch/models/recsys.py"),
-    "bert4rec": ("recsys", "repro_torch/models/recsys.py"),
 }
 
 

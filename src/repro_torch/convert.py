@@ -135,26 +135,29 @@ def load_arrays(arrays, live):
 
 # the inverses of encoder_params_from_arrays and lm_params_from_arrays:
 # both models keep their layers under "layers", so one function serves
+# (to_arrays stacks any list of per-layer trees: the recsys and GNN
+# models' too)
 encoder_params_to_arrays = lm_params_to_arrays = to_arrays
 
 
-def _unstacked(tree: dict, n_layers: int) -> dict:
-    """The reference's tree as float32 CPU tensors, its stacked
-    ``layers`` split into a list of ``n_layers`` per-layer trees."""
-    def tensors(node):
-        if isinstance(node, dict):
-            return {k: tensors(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, dtype=np.float32,
-                                         order="C"))
+def _tensors(tree):
+    """The reference's tree as float32 CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32, order="C"))
 
-    params = tensors(tree)
-    stacked = params["layers"]
+
+def _unstacked(tree: dict, n_layers: int, key: str = "layers") -> dict:
+    """The reference's tree as float32 CPU tensors, its stacked ``key``
+    subtree split into a list of ``n_layers`` per-layer trees."""
+    params = _tensors(tree)
+    stacked = params[key]
     n_stacked = leaves(stacked)[0].shape[0]
     if n_stacked != n_layers:
         raise ValueError(f"the tree stacks {n_stacked} layers, the config "
                          f"has {n_layers}")
-    params["layers"] = [tree_map(lambda a: a[i].clone(), stacked)
-                        for i in range(n_layers)]
+    params[key] = [tree_map(lambda a: a[i].clone(), stacked)
+                   for i in range(n_layers)]
     return params
 
 
@@ -176,4 +179,28 @@ def lm_params_from_arrays(tree: dict, cfg,
     as numpy arrays, layers unstacked as for the encoder."""
     from repro_torch.models.transformer import TransformerLM
     return TransformerLM(cfg, _unstacked(tree, cfg.n_layers)).to(
+        resolve_device(device))
+
+
+def recsys_params_from_arrays(tree: dict, arch: str, cfg,
+                              device: str | torch.device | None = None):
+    """The port's recsys model (a ``TreeModel``) for ``arch`` (one of
+    ``dlrm-mlperf``, ``din``, ``deepfm``, ``bert4rec``) from the JAX
+    package's parameters as numpy arrays; BERT4Rec's stacked ``blocks``
+    are unstacked into one module a block."""
+    from repro_torch.models.recsys import RECSYS
+    if arch not in RECSYS:
+        raise KeyError(f"{arch!r} is not a recsys arch: {sorted(RECSYS)}")
+    from repro_torch.models.layers import TreeModel
+    params = (_unstacked(tree, cfg.n_blocks, "blocks") if arch == "bert4rec"
+              else _tensors(tree))
+    return TreeModel(cfg, params).to(resolve_device(device))
+
+
+def gnn_params_from_arrays(tree: dict, cfg,
+                           device: str | torch.device | None = None):
+    """The port's MeshGraphNet (a ``TreeModel``) from the JAX package's
+    GNN parameters as numpy arrays, the processor layers unstacked."""
+    from repro_torch.models.layers import TreeModel
+    return TreeModel(cfg, _unstacked(tree, cfg.n_layers)).to(
         resolve_device(device))

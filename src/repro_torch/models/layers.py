@@ -32,13 +32,17 @@ class ParamTree(nn.Module):
     """A nested parameter dictionary as a module: tensors become
     parameters, nested dicts child trees, under the same names, so
     ``tree["attn"]["q_norm"]["scale"]`` reads as on the reference's dict
-    and ``named_parameters`` gives ``attn.q_norm.scale``."""
+    and ``named_parameters`` gives ``attn.q_norm.scale``. A list of
+    per-layer trees (which the reference stacks on a scanned axis)
+    becomes a ``ModuleList`` of trees."""
 
     def __init__(self, tree: dict):
         super().__init__()
         self._keys = list(tree)
         for k, v in tree.items():
-            if isinstance(v, dict):
+            if isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(ParamTree(p) for p in v))
+            elif isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
                 self.register_parameter(k, nn.Parameter(v))
@@ -46,8 +50,27 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __len__(self) -> int:
+        return len(self._keys)
+
     def items(self):
         return [(k, self[k]) for k in self._keys]
+
+
+class TreeModel(ParamTree):
+    """A model that is the reference's whole parameter tree as a
+    :class:`ParamTree`, with its config beside it as ``cfg``."""
+
+    def __init__(self, cfg, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
 
 def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
@@ -68,7 +91,8 @@ def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32) -> torch.Tensor:
-    x = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32)
+    x = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (x * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
@@ -132,7 +156,8 @@ def mlp_stack_init(gen: torch.Generator, dims: list[int],
     """Plain MLP tower ([in, h1, ..., out]) with biases."""
     return {
         f"layer{i}": {"w": dense_init(gen, dims[i], dims[i + 1], dtype),
-                      "b": torch.zeros((dims[i + 1],), dtype=dtype)}
+                      "b": torch.zeros((dims[i + 1],), dtype=dtype,
+                                       device=gen.device)}
         for i in range(len(dims) - 1)
     }
 

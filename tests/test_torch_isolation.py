@@ -15,13 +15,16 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_arch
-from repro_torch.convert import (index_from_arrays, lm_params_from_arrays,
-                                 queries_from_arrays, to_arrays)
+from repro_torch.convert import (gnn_params_from_arrays, index_from_arrays,
+                                 lm_params_from_arrays, queries_from_arrays,
+                                 recsys_params_from_arrays, to_arrays)
 from repro_torch.core.index import build_index
 from repro_torch.core.search import SearchConfig, brute_force_topk, retrieve
 from repro_torch.core.types import INDEX_FIELDS
 from repro_torch.data.synthetic import CorpusSpec, make_corpus, make_queries
 from repro_torch.kernels import launch_counts, reset_launch_counts, wrappers
+from repro_torch.models.gnn import init_params as gnn_init
+from repro_torch.models.recsys import RECSYS
 from repro_torch.models.sparse_encoder import SparseEncConfig, init_params
 from repro_torch.models.transformer import init_cache
 from repro_torch.models.transformer import init_params as lm_init
@@ -80,6 +83,8 @@ def _tiny():
 def test_entry_points_default_to_the_card(no_card):
     docs, topic, index, queries = _tiny()
     lm_cfg = get_arch("olmo-1b").smoke_config()
+    b4r_cfg = get_arch("bert4rec").smoke_config()
+    gnn_cfg = get_arch("meshgraphnet").smoke_config()
     cfg = SearchConfig(k=3)
     calls = [
         lambda: build_index(docs, topic, m=3, n_seg=2),
@@ -102,6 +107,17 @@ def test_entry_points_default_to_the_card(no_card):
         lambda: lm_params_from_arrays(
             to_arrays(lm_init(torch.Generator(), lm_cfg, device="cpu")),
             lm_cfg),
+        *(lambda arch=arch: RECSYS[arch][0](
+            torch.Generator(), get_arch(arch).smoke_config())
+          for arch in RECSYS),
+        lambda: recsys_params_from_arrays(
+            to_arrays(RECSYS["bert4rec"][0](torch.Generator(), b4r_cfg,
+                                            device="cpu")),
+            "bert4rec", b4r_cfg),
+        lambda: gnn_init(torch.Generator(), gnn_cfg),
+        lambda: gnn_params_from_arrays(
+            to_arrays(gnn_init(torch.Generator(), gnn_cfg, device="cpu")),
+            gnn_cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

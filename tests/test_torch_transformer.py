@@ -235,9 +235,11 @@ def test_mixed_precision_keeps_float32_masters():
 
 
 def test_configs_and_registry_match_reference():
-    """All eleven ids; the ported ones' configs field by field (the MoE
-    field aside) and their parameter counts at full width; the others
-    name the module still to port."""
+    """All eleven ids; the dense LMs' configs field by field (the MoE
+    field aside) and their parameter counts at full width; the graph and
+    recsys archs resolve (their configs: test_torch_gnn.py and
+    test_torch_recsys.py); the MoE ones name the module still to
+    port."""
     from repro.configs import arch_kind as j_kind
     from repro.configs import get_arch as j_get_arch
     from repro.configs import list_archs as j_list
@@ -251,8 +253,11 @@ def test_configs_and_registry_match_reference():
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
     assert get_arch("olmo-1b").config().param_count() == 1_176_764_416
-    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e", "meshgraphnet",
-                 "dlrm-mlperf", "din", "deepfm", "bert4rec"):
+    for arch in ("meshgraphnet", "dlrm-mlperf", "din", "deepfm",
+                 "bert4rec"):
+        assert missing_module(arch) is None
+        assert get_arch(arch).KIND == j_kind(arch)
+    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
         with pytest.raises(NotImplementedError, match=re.escape(
                 missing_module(arch))):
             get_arch(arch)
@@ -330,13 +335,13 @@ def test_launcher_resume_equals_uninterrupted(capsys, tmp_path):
 
 
 def test_launcher_refusals(capsys, monkeypatch):
-    """asc-splade and the unported families exit 2, as the reference's
+    """asc-splade and the unported MoE family exit 2, as the reference's
     retrieval kind does; --devices and a missing card exit with an
     error."""
     for arch, what in (("asc-splade", "has no train step"),
                        ("olmoe-1b-7b", "repro_torch/models/moe.py"),
-                       ("meshgraphnet", "repro_torch/models/gnn.py"),
-                       ("dlrm-mlperf", "repro_torch/models/recsys.py")):
+                       ("llama4-scout-17b-a16e",
+                        "repro_torch/models/moe.py")):
         with pytest.raises(SystemExit) as e:
             t_launch.main(["--arch", arch, "--device", "cpu"])
         assert e.value.code == 2
