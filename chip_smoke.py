@@ -212,13 +212,43 @@ nonzero and prints no result):
                128), then one forward at full width on a
                ``NeighborSampler`` subgraph (fanout 15, 10; 1,024 seeds over
                a 10^6-node CSR), timed.
+ 19. moe     — the mixture-of-experts LMs served: olmoe-1b-7b at depth 2
+               with its full widths (fp32, 2 x 128 tokens) on the card
+               against the CPU on the same weights (logits, aux loss and
+               every layer's routing; a token whose experts differ must be
+               a near tie, and its sequence is left out after it), and at
+               no-drop capacity (E / K) a decode step equal to a full
+               forward over S + 1; then olmoe at full depth (16 layers,
+               6.92B parameters) and llama4-scout cut to 4 of its 48
+               layers (10.88B), each drawn on the card from a CUDA
+               generator, from fp32 masters and from bf16 parameters:
+               prefill of 8 x 512 tokens and 32 greedy decode steps, timed,
+               with the bytes bound of a decode step, its device time and
+               the picks kept at capacity factor 1.25; the two parameter
+               dtypes' prefill logits equal bit for bit under deterministic
+               algorithms;
+ 20. train_moe — olmoe at full widths, depth 2: one AdamW step (fp32) on
+               the card against the CPU with the routing audited, 10 more
+               on the same batch (the loss must fall by a nat), 6 timed
+               steps at 8 x 512 in bf16 compute on fp32 masters (step ms,
+               tokens/s, MFU on the active parameters, peak memory); then
+               the launcher for olmoe-1b-7b and llama4-scout-17b-a16e at
+               ``--preset smoke`` through ``launch_and_resume`` (the full
+               presets need 110 GB and more);
+ 21. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
+               on the card, stage by stage (the planner and K2 must
+               launch; rank-safe recall@10 1.000; every result against
+               the on-card plain path with ``check_audited``, each served
+               batch first replayed bit for bit), then each run as
+               ``python -m`` with no flag: exit 0 and the reference's
+               lines.
 
-Phases 8–18 run after the lifecycle phase and before the kernels phase.
+Phases 8–21 run after the lifecycle phase and before the kernels phase.
 Every row of the ``kernels`` line gives its launches in each phase
 (``path_launches``: serve, superblock, pipelined, lifecycle, frontend,
 dist (one count a rank), encoder, train_encoder, train_lm, recsys_asc,
-recsys, train_recsys, train_gnn) and, under ``catalog``, its times at
-the recsys_asc phase's shapes.
+recsys, train_recsys, train_gnn, moe, train_moe, examples) and, under
+``catalog``, its times at the recsys_asc phase's shapes.
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -3092,7 +3122,9 @@ DET_LAUNCH = ("import sys, torch\n"
 TR_PRESETS = {"bert4rec": "full", "din": "full", "deepfm": "full",
               # at full width the 53.2 GB table and a dense gradient of the
               # same size pass 80 GB before AdamW's two moments
-              "dlrm-mlperf": "smoke", "meshgraphnet": "full"}
+              "dlrm-mlperf": "smoke", "meshgraphnet": "full",
+              # the full MoE presets need 110 GB and more with AdamW state
+              "olmoe-1b-7b": "smoke", "llama4-scout-17b-a16e": "smoke"}
 
 
 def _arrays(step_dir: str) -> list:
@@ -3288,6 +3320,546 @@ def phase_train_gnn(torch) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# moe: the mixture-of-experts LMs served (prefill, decode)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_LLAMA = "olmoe-1b-7b", "llama4-scout-17b-a16e"
+MOE_CHECK_DEPTH = 2          # card against CPU at full widths (fp32)
+MOE_CHECK_BATCH, MOE_CHECK_SEQ = 2, 128
+MOE_LLAMA_DEPTH = 4          # llama4-scout's 48 layers cut to this many
+MOE_BATCH, MOE_SEQ, MOE_DECODE = 8, 512, 32
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 8, 512, 6
+MOE_SEED = SEED + 60
+
+
+@contextlib.contextmanager
+def recorded_routing(log: list, probs: bool = True):
+    """Record every MoE layer call: the experts ``moe.route`` chose (with
+    ``probs``, its probabilities too), on the host, and the capacity and
+    the share of picks the dispatch kept."""
+    import repro_torch.models.moe as moe_mod
+    route, dispatch = moe_mod.route, moe_mod.dispatch
+
+    def rec_route(params, x, cfg):
+        out = route(params, x, cfg)
+        log.append({"idx": out[2].cpu(),
+                    **({"probs": out[0].detach().cpu()} if probs else {})})
+        return out
+
+    def rec_dispatch(x, gates, idx, E, C):
+        out = dispatch(x, gates, idx, E, C)
+        log[-1].update(C=C, kept=float(out[1][3].float().mean()))
+        return out
+
+    moe_mod.route, moe_mod.dispatch = rec_route, rec_dispatch
+    try:
+        yield log
+    finally:
+        moe_mod.route, moe_mod.dispatch = route, dispatch
+
+
+def routing_audit(want: list, got: list, K: int,
+                  what: str) -> tuple[list, set]:
+    """Layer by layer, the tokens whose chosen experts (in order) differ
+    between two recorded runs over the same sequences. In the first layer
+    where a sequence differs at all, each differing token must be a near
+    tie in ``want``: its K-th and (K+1)-th probabilities within 2 x RTOL
+    of each other (the two runs' fp32 sums round differently). From that
+    layer on the sequence may differ as a consequence, and it is left out
+    of what the caller compares. Returns (the flips, the sequences left
+    out)."""
+    import torch
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(want)} MoE calls against "
+                             f"{len(got)}")
+    flips, out = [], set()
+    for layer, (w, g) in enumerate(zip(want, got)):
+        new = set()
+        for b, s in (w["idx"] != g["idx"]).any(-1).nonzero().tolist():
+            if b in out:
+                continue
+            top = torch.sort(w["probs"][b, s], descending=True).values
+            gap = float(top[K - 1] - top[K])
+            if gap > 2 * RTOL * float(top[K - 1]):
+                raise AssertionError(
+                    f"{what}: layer {layer}, sequence {b}, token {s} takes "
+                    f"experts {g['idx'][b, s].tolist()} against "
+                    f"{w['idx'][b, s].tolist()}, at a probability gap of "
+                    f"{gap:.3g}")
+            flips.append(dict(layer=layer, row=b, token=s, gap=gap))
+            new.add(b)
+        out |= new
+    return flips, out
+
+
+def set_lm_cfg(model, cfg) -> None:
+    model.cfg = cfg
+    for layer in model.layers:
+        layer.cfg = cfg
+
+
+def serve_lm(model, tokens, steps: int, torch) -> dict:
+    """``prefill`` of ``tokens`` (a warm call, then a timed one: host clock
+    around a synchronise), then ``steps`` greedy ``decode_step``s into a
+    cache grown to S + steps, each timed, and one step's device time
+    (profiler); peak memory over the timed calls. Logits must be
+    finite."""
+    from repro_torch.models import transformer as tf
+    B, S = tokens.shape
+    with torch.no_grad():
+        tf.prefill(model, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(model, tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        grown = tf.init_cache(model.cfg, B, S + steps, device=DEVICE)
+        grown["k"][:, :, :S] = cache["k"]
+        grown["v"][:, :, :S] = cache["v"]
+        grown["len"] = cache["len"]
+        del cache
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        step_ms, finite = [], bool(torch.isfinite(logits).all())
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            dec, grown = tf.decode_step(model, grown, nxt)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            finite &= bool(torch.isfinite(dec).all())
+            nxt = dec[:, -1].argmax(-1, keepdim=True)
+        # the device's share of a step: its kernels and copies summed
+        # under the profiler, against the step's wall time
+        step_device_ms = device_ms(
+            lambda: tf.decode_step(model, grown, nxt), reps=5)
+    if not finite or tuple(dec.shape) != (B, 1, model.cfg.vocab):
+        raise AssertionError(f"moe: {model.cfg.name}'s logits are not "
+                             f"finite or have the wrong shape")
+    ordered = sorted(step_ms[1:])
+    return dict(prefill_ms=round(prefill_ms, 3),
+                prefill_tokens_per_s=round(B * S / prefill_ms * 1e3, 1),
+                decode_ms_median=round(ordered[len(ordered) // 2], 3),
+                decode_ms_first=round(step_ms[0], 3),
+                decode_ms_max=round(ordered[-1], 3),
+                decode_device_ms=round(step_device_ms, 3),
+                decode_device_busy=round(
+                    step_device_ms / ordered[len(ordered) // 2], 3),
+                decode_tokens_per_s=round(
+                    B / ordered[len(ordered) // 2] * 1e3, 1),
+                peak_memory_mb=round(torch.cuda.max_memory_allocated() / 1e6,
+                                     1))
+
+
+def decode_bounds(cfg, n_params: int, batch: int, seq: int) -> dict:
+    """The least time of one decode step at the HBM rate, from what the
+    code moves: with fp32 masters ``_cast`` reads every weight (4 bytes),
+    writes its bf16 copy (2) and the products read that copy (2); with
+    bf16 parameters the products read each weight once (2 bytes), the
+    embedding aside (only the batch's rows are gathered). Both read the
+    KV cache (bf16) once."""
+    kv = (cfg.n_layers * batch * seq * cfg.n_kv_heads * cfg.head_dim * 2
+          * 2)
+    embed = cfg.vocab * cfg.d_model
+    return {"fp32_masters": (n_params * 8 + kv) / HBM_BYTES_S * 1e3,
+            "bf16_params": ((n_params - embed) * 2 + kv) / HBM_BYTES_S
+            * 1e3}
+
+
+def phase_moe(torch) -> dict:
+    """The MoE LMs served: olmoe at depth 2 (full widths, fp32) on the card
+    against the CPU on the same weights (logits, aux and every layer's
+    routing, near-tie flips audited), and its decode at no-drop capacity
+    against a full forward over S + 1; then olmoe at full depth and
+    llama4-scout cut to 4 layers, drawn on the card, each from fp32
+    masters and from bf16 parameters: prefill of 8 x 512 tokens and 32
+    decode steps, timed, with the bounds of a decode step; the two
+    parameter dtypes' prefill logits equal bit for bit under
+    deterministic algorithms."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    full = get_arch(MOE_ARCH).config()
+    E, K = full.moe.n_experts, full.moe.top_k
+    rng = np.random.default_rng(MOE_SEED)
+
+    # ---- depth 2, fp32: the card against the CPU on the same weights
+    cfg = dataclasses.replace(full, n_layers=MOE_CHECK_DEPTH, dtype="float32")
+    t0 = time.perf_counter()
+    on_cpu = tf.init_params(torch.Generator().manual_seed(MOE_SEED), cfg,
+                            device="cpu")
+    cpu_init_s = time.perf_counter() - t0
+    on_card = copy.deepcopy(on_cpu).to(DEVICE)
+    B, S = MOE_CHECK_BATCH, MOE_CHECK_SEQ
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    runs = {}
+    with torch.no_grad():
+        for name, model in (("cpu", on_cpu), ("card", on_card)):
+            routes: list = []
+            t0 = time.perf_counter()
+            with recorded_routing(routes):
+                logits, aux = tf.forward(model, toks)
+            runs[name] = (logits.float().cpu(), float(aux), routes,
+                          time.perf_counter() - t0)
+    del on_cpu
+    (lc, ac, rc, cpu_s), (lg, ag, rg, card_s) = runs["cpu"], runs["card"]
+    flips, left_out = routing_audit(rc, rg, K, "moe: depth 2, card vs CPU")
+    rows = [b for b in range(B) if b not in left_out]
+    if not rows:
+        raise AssertionError("moe: every sequence left out after a flip")
+    atol = 1e-5 * float(lc.abs().max())
+    if not torch.allclose(lg[rows], lc[rows], rtol=1e-4, atol=atol):
+        raise AssertionError("moe: depth-2 logits on the card differ from "
+                             "the CPU's")
+    if not flips and not math.isclose(ag, ac, rel_tol=1e-5):
+        raise AssertionError(f"moe: aux {ag} on the card against {ac}")
+    check = dict(layers=MOE_CHECK_DEPTH, batch=B, seq=S,
+                 params=on_card.n_params(), cpu_init_s=round(cpu_init_s, 2),
+                 logits_max_abs_err=float((lg[rows] - lc[rows]).abs().max()),
+                 logits_atol=atol, aux_card=ag, aux_cpu=ac,
+                 aux_gated=not flips,
+                 routed_tokens=MOE_CHECK_DEPTH * B * S,
+                 routing_flips=flips, rows_left_out=sorted(left_out),
+                 capacity=rc[0]["C"], kept=[round(x["kept"], 4) for x in rg],
+                 cpu_s=round(runs["cpu"][3], 2), card_s=round(card_s, 3))
+
+    # ---- no-drop capacity: decode equals a full forward over S + 1
+    nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / K))
+    set_lm_cfg(on_card, nd)
+    toks_d = toks.to(DEVICE)
+    pre_log, dec_log, fwd_log = [], [], []
+    with torch.no_grad():
+        with recorded_routing(pre_log):
+            logits, cache = tf.prefill(on_card, toks_d,
+                                       cache_dtype=torch.float32)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        grown = tf.init_cache(nd, B, S + 1, torch.float32, device=DEVICE)
+        grown["k"][:, :, :S] = cache["k"]
+        grown["v"][:, :, :S] = cache["v"]
+        grown["len"] = cache["len"]
+        with recorded_routing(dec_log):
+            dec, _ = tf.decode_step(on_card, grown, nxt)
+        with recorded_routing(fwd_log):
+            whole, _ = tf.forward(on_card, torch.cat([toks_d, nxt], 1))
+    joined = [{"idx": torch.cat([p["idx"], d["idx"]], 1),
+               "probs": torch.cat([p["probs"], d["probs"]], 1)}
+              for p, d in zip(pre_log, dec_log)]
+    nd_flips, nd_out = routing_audit(fwd_log, joined, K,
+                                     "moe: decode vs full forward")
+    nd_rows = [b for b in range(B) if b not in nd_out]
+    if not nd_rows or not all(x["kept"] == 1.0
+                              for x in pre_log + dec_log + fwd_log):
+        raise AssertionError("moe: no-drop capacity dropped a pick, or "
+                             "every sequence was left out")
+    got, want = dec[nd_rows, 0].cpu(), whole[nd_rows, -1].cpu()
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError("moe: decode differs from the full forward")
+    check["no_drop_decode"] = dict(
+        capacity_factor=E / K, prefill_capacity=pre_log[0]["C"],
+        decode_capacity=dec_log[0]["C"],
+        max_abs_err=float((got - want).abs().max()), flips=nd_flips,
+        rows_left_out=sorted(nd_out))
+    del on_card, cache, grown
+    torch.cuda.empty_cache()
+
+    # ---- olmoe at full depth, llama4-scout cut to 4 layers: prefill
+    # 8 x 512 and 32 decode steps, from fp32 masters and bf16 parameters
+    served = {}
+    for arch, depth in ((MOE_ARCH, None), (MOE_LLAMA, MOE_LLAMA_DEPTH)):
+        pub = get_arch(arch).config()
+        cfg = pub if depth is None else dataclasses.replace(pub,
+                                                            n_layers=depth)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (MOE_BATCH, MOE_SEQ))).to(DEVICE)
+        out, det = {}, {}
+        for pdt in (torch.float32, torch.bfloat16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = tf.init_params(
+                torch.Generator(device=DEVICE).manual_seed(MOE_SEED), cfg,
+                device=DEVICE, param_dtype=pdt)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_params = model.n_params()
+            param_gb = sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9
+            with torch.no_grad(), deterministic(torch):
+                det[pdt] = tf.prefill(model, toks)[0].float().cpu()
+            r = serve_lm(model, toks, MOE_DECODE, torch)
+            routes: list = []
+            with torch.no_grad(), recorded_routing(routes, probs=False):
+                tf.prefill(model, toks)
+            r.update(init_s=round(init_s, 3), param_gb=round(param_gb, 2),
+                     capacity=routes[0]["C"],
+                     kept=[round(x["kept"], 4) for x in routes])
+            out["fp32_masters" if pdt == torch.float32
+                else "bf16_params"] = r
+            del model
+            torch.cuda.empty_cache()
+        if not torch.equal(det[torch.float32], det[torch.bfloat16]):
+            raise AssertionError(f"moe: {arch} from bf16 parameters gives "
+                                 f"other prefill logits than from fp32 "
+                                 f"masters")
+        bounds = decode_bounds(cfg, n_params, MOE_BATCH,
+                               MOE_SEQ + MOE_DECODE)
+        for key, r in out.items():
+            r["decode_bound_ms"] = round(bounds[key], 3)
+            r["decode_share_of_bound"] = round(
+                bounds[key] / r["decode_ms_median"], 3)
+        served[arch] = dict(
+            layers=cfg.n_layers, published_layers=pub.n_layers,
+            cut=(None if depth is None else
+                 f"depth {pub.n_layers} -> {depth} (the full model, "
+                 f"{pub.param_count() / 1e9:.1f}B, does not fit one card)"),
+            params=n_params, active_params=cfg.active_param_count(),
+            d_model=cfg.d_model, experts=cfg.moe.n_experts,
+            top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
+            batch=MOE_BATCH, prefill_seq=MOE_SEQ, decode_steps=MOE_DECODE,
+            bf16_params_equal_fp32_masters=True, **out)
+    launches = launch_counts()
+    log("moe", card_vs_cpu=check, served=served,
+        serves_from="fp32_masters (the reference's init_params default; "
+        "bf16_params timed beside it)", launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+def phase_train_moe(torch) -> dict:
+    """olmoe at its full widths, depth 2: one AdamW step (fp32) on the
+    card against the CPU (``card_vs_cpu``; the routing of every call
+    audited), 10 more on the same batch (the loss must fall by a nat),
+    then 6 steps at batch 8 x 512 in bf16 compute on fp32 masters with
+    remat, timed (step ms, tokens/s, MFU on the active parameters, peak
+    memory); then the launcher for both MoE archs through
+    ``launch_and_resume`` at ``--preset smoke`` (the full presets need
+    110 GB and more, and the launcher has no depth flag)."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import LMDataSpec, lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.training.tree import module_tree
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    full = get_arch(MOE_ARCH).config()
+    cfg = dataclasses.replace(full, n_layers=MOE_CHECK_DEPTH, dtype="float32")
+    on_cpu = tf.init_params(torch.Generator().manual_seed(MOE_SEED + 1), cfg,
+                            device="cpu")
+    b = {k: v[:, :MOE_CHECK_SEQ] for k, v in lm_batch(
+        LMDataSpec(cfg.vocab, MOE_CHECK_SEQ + 1, MOE_CHECK_BATCH),
+        0).items()}
+    on_card = copy.deepcopy(on_cpu).to(DEVICE)
+    adam = opt_lib.adamw(opt_lib.constant_schedule(LM_CHECK_LR))
+    routes: list = []
+    try:
+        with recorded_routing(routes):
+            check = card_vs_cpu(on_cpu, on_card, tf.loss_fn, adam,
+                                TrainConfig(), [b], LM_CHECK_LR, "train_moe",
+                                torch)
+    except AssertionError as e:
+        half = len(routes) // 2
+        flips, _ = routing_audit(routes[:half], routes[half:],
+                                 cfg.moe.top_k, "train_moe")
+        raise AssertionError(f"{e} (routing flips at near ties: "
+                             f"{flips})") from e
+    half = len(routes) // 2
+    check["routing_flips"], _ = routing_audit(
+        routes[:half], routes[half:], cfg.moe.top_k, "train_moe")
+    check.update(moe_calls=half, params=on_cpu.n_params())
+    del on_cpu
+    memo, _ = step_state(on_card, tf.loss_fn, adam, TrainConfig(),
+                         [b] * LM_MEMO_STEPS)
+    memo_loss = [round(m["loss"], 4) for m in memo]
+    if not memo_loss[-1] < memo_loss[0] - LM_MEMO_DROP:
+        raise AssertionError(f"train_moe: the loss did not fall on a "
+                             f"repeated batch: {memo_loss}")
+    del on_card
+    torch.cuda.empty_cache()
+
+    # timed: bf16 compute on fp32 masters (the published dtype), remat
+    tcfg = dataclasses.replace(full, n_layers=MOE_CHECK_DEPTH)
+    model = tf.init_params(
+        torch.Generator(device=DEVICE).manual_seed(MOE_SEED + 1), tcfg,
+        device=DEVICE)
+    spec = LMDataSpec(tcfg.vocab, MOE_TRAIN_SEQ + 1, MOE_TRAIN_BATCH)
+    batches = [{k: v[:, :MOE_TRAIN_SEQ].to(DEVICE)
+                for k, v in lm_batch(spec, s).items()}
+               for s in range(MOE_TRAIN_STEPS)]
+    opt = opt_lib.adamw(opt_lib.constant_schedule(LM_CHECK_LR))
+    step = make_train_step(tf.loss_fn, opt, TrainConfig())
+    state = opt.init(module_tree(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for i, bt in enumerate(batches):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, bt, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_moe: losses {losses}")
+    timed = sorted(step_s[2:])
+    median = timed[len(timed) // 2]
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    flops = 6.0 * tcfg.active_param_count() * tokens
+    del model, state
+    torch.cuda.empty_cache()
+    launched = {arch: launch_and_resume(arch, torch)
+                for arch in (MOE_ARCH, MOE_LLAMA)}
+    launches = launch_counts()
+    log("train_moe", arch=MOE_ARCH, card_vs_cpu=check,
+        repeated_batch=dict(losses=memo_loss),
+        check_shape=dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                         experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                         batch=MOE_CHECK_BATCH, seq=MOE_CHECK_SEQ),
+        timed=dict(layers=tcfg.n_layers, dtype=tcfg.dtype, remat=tcfg.remat,
+                   batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+                   params=tcfg.param_count(),
+                   active_params=tcfg.active_param_count(),
+                   losses=[round(x, 4) for x in losses],
+                   step_ms_median=round(median * 1e3, 2),
+                   step_ms=[round(x * 1e3, 2) for x in step_s],
+                   tokens_per_s=round(tokens / median, 1),
+                   model_flops_per_step=flops,
+                   mfu=round(flops / median / BF16_FLOP_S, 4),
+                   mfu_peak="989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+                   peak_memory_mb=round(peak / 1e6, 1)),
+        launcher=launched,
+        launcher_preset_note="smoke: --preset full needs 110 GB and more "
+        "(olmoe's 6.9B parameters with AdamW state; llama4-scout 107.8B) "
+        "and the launcher has no depth flag",
+        launches=launches, seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# examples: the root quickstart and serving examples on the card
+# ---------------------------------------------------------------------------
+
+def phase_examples(torch) -> dict:
+    """``repro_torch.examples.quickstart`` and ``serve_retrieval`` on the
+    card: stage by stage in this process (counts zeroed before their
+    searches, read after: the planner and K2 must launch; rank-safe ASC's
+    recall@10 must be 1.000), every result replayed against the on-card
+    plain path (``check_audited``; each served batch first replayed on
+    the kernel path, bit for bit), safe mode against brute force; then
+    each example as ``python -m`` with no flag: exit 0, the reference's
+    lines."""
+    from repro_torch.core.search import (asc_retrieve, brute_force_topk,
+                                         retrieve)
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.examples import serve_retrieval as sr
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tools.plain_path import plain_versions, swapped_wrappers
+
+    t_phase = time.perf_counter()
+    q_lines: list[str] = []
+    s_lines: list[str] = []
+    docs, queries = qs.corpus(log=q_lines.append)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = qs.index(docs, qs.cluster(docs, torch.Generator().manual_seed(0),
+                                    DEVICE), DEVICE, log=q_lines.append)
+    torch.cuda.synchronize()
+    qs_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx2, doc_topic = sr.build(torch.Generator().manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    sr_build_s = time.perf_counter() - t0
+
+    k_log: list = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_decisions(k_log):
+        res = qs.retrieve_all(idx, queries, DEVICE, log=q_lines.append)
+    torch.cuda.synchronize()
+    qs_ms = (time.perf_counter() - t0) * 1e3
+    eng, unbudgeted = sr.serve_unbudgeted(idx2, doc_topic, DEVICE,
+                                          log=s_lines.append)
+    budgeted = sr.serve_budgeted(idx2, doc_topic, eng.stats.mean_ms, DEVICE,
+                                 log=s_lines.append)
+    launches = launch_counts()
+    missing = [k for k in ("plan_wave", "score_queue") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"examples: the serving launched no {missing}")
+    if res["recall"][1.0, 1.0] != 1.0:
+        raise AssertionError(f"examples: rank-safe recall@10 is "
+                             f"{res['recall'][1.0, 1.0]}")
+    if len(k_log) != len(qs.SETTINGS):
+        raise AssertionError(f"examples: {len(k_log)} batched walks")
+
+    rows = [[(0, r)] for r in range(queries.n_queries)]
+    flips = []
+    for walk, (key, out) in zip(k_log, res["asc"].items()):
+        p_log: list = []
+        with swapped_wrappers(plain_versions), recorded_decisions(p_log):
+            plain = asc_retrieve(idx, queries, k=qs.K, mu=key[0], eta=key[1],
+                                 device=DEVICE)
+        flips += check_audited(out, plain, [walk], p_log, rows,
+                               f"examples: quickstart (mu, eta) = {key}")
+    oracle = brute_force_topk(idx, queries, qs.K, device=DEVICE)
+    safe = res["asc"][1.0, 1.0]
+    check_topk(oracle.doc_ids.cpu(), oracle.scores.cpu(),
+               safe.doc_ids.cpu(), safe.scores.cpu(),
+               "examples: quickstart safe mode vs brute force")
+    for j, bt in enumerate(unbudgeted + budgeted):
+        budget = idx2.m + 1 if bt["budget"] is None else bt["budget"]
+        k_walk, p_walk = [], []
+        with recorded_decisions(k_walk):
+            again = retrieve(idx2, bt["queries"], sr.CFG, budget=budget,
+                             device=DEVICE)
+        check_identical(again, bt["out"], f"examples: serve batch {j}, "
+                        f"kernel replay")
+        with swapped_wrappers(plain_versions), recorded_decisions(p_walk):
+            plain = retrieve(idx2, bt["queries"], sr.CFG, budget=budget,
+                             device=DEVICE)
+        flips += check_audited(again, plain, k_walk, p_walk, rows,
+                               f"examples: serve batch {j} (budget "
+                               f"{budget})")
+
+    runs = {}
+    for name in ("quickstart", "serve_retrieval"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}"],
+            capture_output=True, text=True, cwd=ROOT, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode != 0:
+            raise AssertionError(f"examples: {name} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        runs[name] = dict(seconds=round(time.perf_counter() - t0, 2),
+                          lines=proc.stdout.splitlines())
+    q_run = runs["quickstart"]["lines"]
+    if len(q_run) != 7 or "recall@10=1.000" not in q_run[2] or len(
+            runs["serve_retrieval"]["lines"]) != 13:
+        raise AssertionError(f"examples: the runs printed {runs}")
+    log("examples", quickstart=dict(
+            lines=q_lines, build_s=round(qs_build_s, 3),
+            serve_ms=round(qs_ms, 3), m=qs.M, n_seg=qs.N_SEG,
+            d_pad=qs.D_PAD, vocab=qs.SPEC.vocab,
+            queries=queries.n_queries),
+        serve_retrieval=dict(
+            lines=s_lines, build_s=round(sr_build_s, 3),
+            batches=len(unbudgeted) + len(budgeted),
+            budgets=[bt["budget"] for bt in budgeted],
+            mean_ms_per_query=round(eng.stats.mean_ms, 4)),
+        counter_flips=flips, launches=launches, subprocess=runs,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -3333,7 +3905,8 @@ def superblock_plan_times(args, torch) -> dict:
 
 
 def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
-                  enc, te, tl, ra, rs, tr, tg, torch) -> list[dict]:
+                  enc, te, tl, ra, rs, tr, tg, mo, tm, ex,
+                  torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
     (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
@@ -3382,7 +3955,10 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                 "recsys_asc": ra["launches"][name],
                 "recsys": rs["launches"][name],
                 "train_recsys": tr["launches"][name],
-                "train_gnn": tg["launches"][name]}
+                "train_gnn": tg["launches"][name],
+                "moe": mo["launches"][name],
+                "train_moe": tm["launches"][name],
+                "examples": ex["launches"][name]}
 
     def catalog(*keys):
         return {k: ra["kernels"][k] for k in keys if k in ra["kernels"]}
@@ -3766,8 +4342,12 @@ def main() -> int:
     rs = phase_recsys(torch)
     tr = phase_train_recsys(torch)
     tg = phase_train_gnn(torch)
+    mo = phase_moe(torch)
+    tm = phase_train_moe(torch)
+    ex = phase_examples(torch)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                         dist, enc, te, tl, ra, rs, tr, tg, torch)
+                         dist, enc, te, tl, ra, rs, tr, tg, mo, tm, ex,
+                         torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

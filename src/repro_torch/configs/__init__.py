@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (PyTorch port of
 ``repro/configs/__init__.py``).
 
-All eleven architectures of the reference are named. Those whose model is
-ported resolve to their config module; for the others ``get_arch`` raises
-an error naming the module still to port, and ``arch_kind`` answers from
-the table below without importing anything.
+All eleven architectures of the reference resolve to their config module.
+``NOT_PORTED`` would name an architecture whose model still has a module
+to port (``get_arch`` then raises naming it, and ``arch_kind`` answers
+without importing anything); it is empty.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ ARCHS = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "asc-splade": "repro_torch.configs.asc_splade",
     "meshgraphnet": "repro_torch.configs.meshgraphnet",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
@@ -24,10 +26,7 @@ ARCHS = {
 }
 
 # id -> (kind, the port module its model needs)
-NOT_PORTED = {
-    "llama4-scout-17b-a16e": ("lm", "repro_torch/models/moe.py"),
-    "olmoe-1b-7b": ("lm", "repro_torch/models/moe.py"),
-}
+NOT_PORTED: dict[str, tuple[str, str]] = {}
 
 
 def missing_module(name: str) -> str | None:

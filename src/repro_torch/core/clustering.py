@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.types import SparseDocs
 from repro_torch.device import resolve_device
+from repro_torch.utils import rank_within_run
 
 
 def sq_distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -148,7 +149,7 @@ def _balanced_rounds(d2: torch.Tensor, capacity: int) -> torch.Tensor:
         # cluster keeps the lower id first
         order = torch.argsort(want, stable=True)
         want_sorted = want[order]
-        accept_sorted = (_rank_within(want_sorted)
+        accept_sorted = (rank_within_run(want_sorted)
                          < (capacity - counts)[want_sorted])
         accept = torch.zeros_like(accept_sorted)
         accept[order] = accept_sorted
@@ -159,17 +160,6 @@ def _balanced_rounds(d2: torch.Tensor, capacity: int) -> torch.Tensor:
     # any stragglers (pathological capacity): round-robin into free slots
     return torch.where(assign < 0, (torch.arange(n, device=dev) % k).to(
         torch.int32), assign)
-
-
-def _rank_within(sorted_keys: torch.Tensor) -> torch.Tensor:
-    """Position of each element within its run of equal keys (keys
-    sorted)."""
-    n = sorted_keys.shape[0]
-    idx = torch.arange(n, device=sorted_keys.device)
-    new_run = torch.ones((n,), dtype=torch.bool, device=sorted_keys.device)
-    new_run[1:] = sorted_keys[1:] != sorted_keys[:-1]
-    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=0).values
-    return idx - run_start
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Training launcher (PyTorch port of ``repro/launch/train.py``):
 ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Runs a fault-tolerant training job for a dense LM, MeshGraphNet or one of
-the four recsys architectures on one device, with the reference's data
+Runs a fault-tolerant training job for an LM (dense or mixture of
+experts), MeshGraphNet or one of the four recsys architectures on one
+device, with the reference's data
 per family (LM token batches; a 256-node, 1,024-edge random graph a step;
 the recsys batches at ``--batch``) and its AdamW with a cosine schedule.
 ``--preset smoke`` (default) uses the reduced config, which runs on a
@@ -11,13 +12,13 @@ printed lines are the reference's, plus:
 
   --device D        cuda (default) or cpu. With cuda and no card the
                     launcher exits with an error.
-  --metrics-json P  write the run's history, parameter counts, the
-                    examples (LM: tokens) a step and (on the card) peak
-                    memory to P as JSON.
+  --metrics-json P  write the run's history, parameter counts (an LM's
+                    active count too), the examples (LM: tokens) a step
+                    and (on the card) peak memory to P as JSON.
 
-``asc-splade`` has no train step (exit 2, as the reference's); the MoE
-architectures exit 2 naming the module still to port; ``--devices N``
-exits with an error until ``distributed/sharding.py`` is ported.
+``asc-splade`` has no train step (exit 2, as the reference's);
+``--devices N`` exits with an error until ``distributed/sharding.py`` is
+ported.
 ``--grad-compression`` reaches ``TrainConfig`` and, as in the reference
 (whose ``fit`` passes no compression axis to its step), changes
 nothing.
@@ -58,14 +59,9 @@ def main(argv=None) -> None:
             "not ported yet (it needs repro_torch/distributed/sharding.py); "
             "run without --devices to train on one device")
 
-    from repro_torch.configs import arch_kind, missing_module
+    from repro_torch.configs import arch_kind
 
     kind = arch_kind(args.arch)
-    missing = missing_module(args.arch)
-    if missing:
-        print(f"[train] arch {args.arch!r} ({kind}) needs {missing}, which "
-              f"is not ported to repro_torch yet", file=sys.stderr)
-        raise SystemExit(2)
     if kind not in ("lm", "gnn", "recsys"):
         print(f"[train] arch kind {kind!r} has no train step "
               f"(use repro_torch.launch.serve)", file=sys.stderr)
@@ -92,7 +88,8 @@ def main(argv=None) -> None:
         loss_fn = tf.loss_fn
         spec = pl.LMDataSpec(cfg.vocab, args.seq + 1, args.batch)
         per_step = {"tokens_per_step": args.batch * args.seq,
-                    "param_count": cfg.param_count()}
+                    "param_count": cfg.param_count(),
+                    "active_param_count": cfg.active_param_count()}
 
         def batch_fn(step: int) -> dict:
             return {k: v[:, : args.seq]

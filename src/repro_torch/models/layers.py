@@ -78,13 +78,16 @@ def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
     """Normal truncated at two standard deviations, std
     ``scale / sqrt(shape[0])``, as the reference's: standard normals, each
     one outside (-2, 2) drawn again until none is (about 5% the first
-    round; a fraction of the inverse-CDF route's time on a CPU)."""
+    round; a fraction of the inverse-CDF route's time on a CPU). Drawn on
+    ``gen``'s device."""
     stddev = scale / max(1.0, (shape[0] if shape else 1)) ** 0.5
-    x = torch.randn(shape, generator=gen, dtype=torch.float32)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
     flat = x.view(-1)
     redraw = (flat.abs() >= 2.0).nonzero().squeeze(1)
     while redraw.numel():
-        flat[redraw] = torch.randn(redraw.numel(), generator=gen)
+        flat[redraw] = torch.randn(redraw.numel(), generator=gen,
+                                   device=gen.device)
         redraw = redraw[flat[redraw].abs() >= 2.0]
     return (x * stddev).to(dtype)
 

@@ -1,7 +1,8 @@
-"""Decoder-only LM: GQA + RoPE + (optional) qk-norm / non-parametric LN,
-dense path (PyTorch port of ``repro/models/transformer.py``). Covers
-stablelm-3b, qwen3-14b and olmo-1b; a config with ``moe`` raises until
-``models/moe.py`` is ported.
+"""Decoder-only LM: GQA + RoPE + (optional) qk-norm / non-parametric LN /
+MoE (PyTorch port of ``repro/models/transformer.py``). Covers stablelm-3b,
+qwen3-14b, olmo-1b, llama4-scout and olmoe; a config with ``moe`` puts
+``models/moe.py``'s single-device FFN where the dense MLP sits, and its
+auxiliary loss, summed over the layers, joins the training loss.
 
 The model is a tree of modules whose parameters keep the reference's
 names and layouts, one module a layer where the reference stacks the
@@ -31,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ParamTree, apply_mlp, apply_norm,
                                        cross_entropy_loss, mlp_init,
                                        norm_init, truncated_normal_init)
@@ -53,7 +55,7 @@ class LMConfig:
     qk_norm: bool = False
     act: str = "swiglu"
     rope_theta: float = 1e6
-    moe: object | None = None            # an MoE config: not ported yet
+    moe: moe_lib.MoEConfig | None = None
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat: bool = True
@@ -84,12 +86,22 @@ class LMConfig:
         emb = V * D * (1 if self.tie_embeddings else 2)
         return L * (attn_p + ffn_p) + emb
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.param_count()
+        D, L = self.d_model, self.n_layers
+        H, G = self.head_dim, self.n_kv_heads
+        attn_p = D * (self.n_heads * H) * 2 + D * G * H * 2
+        n_mats = 3 if self.act == "swiglu" else 2
+        Fe = self.moe.d_ff_expert
+        ffn_p = (D * self.moe.n_experts
+                 + (self.moe.top_k + self.moe.n_shared) * n_mats * D * Fe)
+        emb = self.vocab * D * (1 if self.tie_embeddings else 2)
+        return L * (attn_p + ffn_p) + emb
 
-def _require_dense(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: a mixture-of-experts config needs "
-            f"repro_torch/models/moe.py, which is not ported yet")
+
+def _check_remat_policy(cfg: LMConfig) -> None:
     if cfg.remat_policy != "nothing":
         raise ValueError(f"remat_policy {cfg.remat_policy!r}: the port "
                          f"recomputes whole layers only ('nothing')")
@@ -108,28 +120,39 @@ def _cast(tree, dt: torch.dtype):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: norm -> causal GQA -> residual, norm -> MLP ->
-    residual."""
+    """Pre-norm block: norm -> causal GQA -> residual, norm -> MLP (or
+    MoE) -> residual."""
 
     def __init__(self, cfg: LMConfig, p: dict):
         super().__init__()
         self.cfg = cfg
+        self.ffn_name = "moe" if cfg.moe else "mlp"
         self.ln1, self.ln2 = ParamTree(p["ln1"]), ParamTree(p["ln2"])
-        self.attn, self.mlp = ParamTree(p["attn"]), ParamTree(p["mlp"])
+        self.attn = ParamTree(p["attn"])
+        self.add_module(self.ffn_name, ParamTree(p[self.ffn_name]))
 
     def cast(self) -> dict:
         dt = self.cfg.compute_dtype
         return {k: _cast(getattr(self, k), dt)
-                for k in ("ln1", "ln2", "attn", "mlp")}
+                for k in ("ln1", "ln2", "attn", self.ffn_name)}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def ffn(self, lp: dict, h: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The MLP or the MoE on the normed residual: (y, aux loss)."""
+        cfg = self.cfg
+        if cfg.moe:
+            return moe_lib.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
+        return (apply_mlp(lp["mlp"], h, cfg.act),
+                h.new_zeros((), dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg, lp = self.cfg, self.cast()
         h = apply_norm(lp["ln1"], x, cfg.norm)
         x = x + attn.attend_train(lp["attn"], h, qk_norm=cfg.qk_norm,
                                   rope_theta=cfg.rope_theta,
                                   chunk=cfg.attn_chunk)
-        h = apply_norm(lp["ln2"], x, cfg.norm)
-        return x + apply_mlp(lp["mlp"], h, cfg.act)
+        y, aux = self.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))
+        return x + y, aux
 
 
 class TransformerLM(nn.Module):
@@ -138,7 +161,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, params: dict):
         super().__init__()
-        _require_dense(cfg)
+        _check_remat_policy(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(DecoderLayer(cfg, p)
@@ -168,26 +191,36 @@ class TransformerLM(nn.Module):
 def init_params(gen: torch.Generator, cfg: LMConfig,
                 device: str | torch.device | None = None,
                 param_dtype: torch.dtype = torch.float32) -> TransformerLM:
-    """Random init at the reference's scales, drawn on the CPU and moved
-    to ``device`` (None: the CUDA card). As the reference splits one key a
-    layer, each layer draws from its own generator, seeded from ``gen``;
-    the layers are drawn on parallel threads (a CPU generator draws on one
-    core, and the full presets hold billions of layer weights)."""
+    """Random init at the reference's scales, drawn on ``gen``'s device
+    and moved to ``device`` (None: the CUDA card). As the reference splits
+    one key a layer, each layer draws from its own generator, seeded from
+    ``gen``. A CPU generator's layers are drawn on parallel threads (it
+    draws on one core, and the full presets hold billions of layer
+    weights); a CUDA generator fills the model on the card (olmoe's 6.9B
+    weights would otherwise pass through 27.7 GB of host memory)."""
     dev = resolve_device(device)
-    _require_dense(cfg)
-    seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,), generator=gen)
+    _check_remat_policy(cfg)
+    seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,), generator=gen,
+                          device=gen.device)
 
     def layer(seed: int) -> dict:
-        g = torch.Generator().manual_seed(seed)
-        return {"ln1": norm_init(cfg.norm, cfg.d_model),
-                "ln2": norm_init(cfg.norm, cfg.d_model),
-                "attn": attn.attn_init(g, cfg.d_model, cfg.n_heads,
-                                       cfg.n_kv_heads, cfg.head_dim,
-                                       cfg.qk_norm, param_dtype),
-                "mlp": mlp_init(g, cfg.d_model, cfg.d_ff, cfg.act,
-                                param_dtype)}
+        g = torch.Generator(device=gen.device).manual_seed(seed)
+        p = {"ln1": norm_init(cfg.norm, cfg.d_model),
+             "ln2": norm_init(cfg.norm, cfg.d_model),
+             "attn": attn.attn_init(g, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim,
+                                    cfg.qk_norm, param_dtype)}
+        if cfg.moe:
+            p["moe"] = moe_lib.moe_init(g, cfg.d_model, cfg.moe, cfg.act,
+                                        param_dtype)
+        else:
+            p["mlp"] = mlp_init(g, cfg.d_model, cfg.d_ff, cfg.act,
+                                param_dtype)
+        return p
 
-    with ThreadPoolExecutor(min(cfg.n_layers, os.cpu_count() or 1)) as ex:
+    workers = (1 if gen.device.type == "cuda"
+               else min(cfg.n_layers, os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as ex:
         layers = list(ex.map(layer, seeds.tolist()))
     p = {"embed": truncated_normal_init(gen, (cfg.vocab, cfg.d_model), 1.0,
                                         param_dtype),
@@ -205,15 +238,17 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
 
 def forward(model: TransformerLM, tokens: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), aux_loss)."""
+    """tokens (B, S) -> (logits (B, S, V), aux_loss summed over the
+    layers)."""
     x = model.embed_tokens(tokens.to(model.device))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         if model.cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, use_reentrant=False)
+            x, a = checkpoint(layer, x, use_reentrant=False)
         else:
-            x = layer(x)
-    return model.head(x), torch.zeros((), dtype=torch.float32,
-                                      device=x.device)
+            x, a = layer(x)
+        aux = aux + a
+    return model.head(x), aux
 
 
 def loss_fn(model: TransformerLM, batch: dict) -> torch.Tensor:
@@ -242,8 +277,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor,
                                     cfg.rope_theta)
         o = attn.chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
         x = x + torch.einsum("bsgph,gphd->bsd", o, lp["attn"]["wo"])
-        h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(lp["mlp"], h, cfg.act)
+        x = x + layer.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))[0]
         ks.append(k.to(cache_dtype))
         vs.append(v.to(cache_dtype))
     logits = model.head(x[:, -1:, :])
@@ -280,8 +314,7 @@ def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor
                                        qk_norm=cfg.qk_norm,
                                        rope_theta=cfg.rope_theta)
         x = x + a
-        h = apply_norm(lp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(lp["mlp"], h, cfg.act)
+        x = x + layer.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))[0]
         new_k.append(ck)
         new_v.append(cv)
     logits = model.head(x)

@@ -28,6 +28,7 @@ from repro_torch.core import quantization as tq
 from repro_torch.core.static_pruning import static_prune
 from repro_torch.core.types import SparseDocs
 from repro_torch.data.synthetic import make_corpus as t_make_corpus
+from repro_torch.utils import rank_within_run
 
 # tests/test_golden_regression.py's world
 GOLDEN_SPEC = CorpusSpec(n_docs=600, vocab=256, n_topics=8, doc_terms=20,
@@ -150,9 +151,11 @@ def test_balanced_rounds_stop_early_with_the_same_result():
 
 
 def test_rank_within_matches_reference():
+    """``balanced_assign``'s arrival ranks: the port's shared
+    ``utils.rank_within_run`` against the reference's ``_rank_within``."""
     keys = np.sort(np.random.default_rng(5).integers(0, 9, 300))
     np.testing.assert_array_equal(
-        tc._rank_within(torch.from_numpy(keys)).numpy(),
+        rank_within_run(torch.from_numpy(keys)).numpy(),
         np.asarray(jc._rank_within(jnp.asarray(keys), 9)))
 
 

@@ -103,6 +103,8 @@ def test_entry_points_default_to_the_card(no_card):
                                             n_layers=1, n_heads=2,
                                             d_ff=16)),
         lambda: lm_init(torch.Generator().manual_seed(0), lm_cfg),
+        lambda: lm_init(torch.Generator().manual_seed(0),
+                        get_arch("olmoe-1b-7b").smoke_config()),
         lambda: init_cache(lm_cfg, 1, 4),
         lambda: lm_params_from_arrays(
             to_arrays(lm_init(torch.Generator(), lm_cfg, device="cpu")),

@@ -4,8 +4,13 @@ CPU, with the reference's parameters carried across by
 ``convert.lm_params_from_arrays`` and the reference's batches fed to both.
 
 The smoke configs of olmo-1b (non-parametric LN, tied head), stablelm-3b
-(LN, untied) and qwen3-14b (RMS, qk-norm, GQA 8/2) at depth 2, fp32 on
-both sides. Tolerances:
+(LN, untied) and qwen3-14b (RMS, qk-norm, GQA 8/2), and of the two
+mixture-of-experts LMs, olmoe-1b-7b (64 -> 8 experts, top-2 of them) and
+llama4-scout (4 experts, top-1, a shared expert), at depth 2, fp32 on
+both sides. The MoE smoke configs keep the capacity factor 1.25, so
+tokens drop in the forward passes and steps; prefill and decode run at
+no-drop capacity (E / K, as the reference's smoke test) so decode can
+equal a full forward. Tolerances:
 
   * loss and logits rtol 1e-5, atol 1e-5 (sums in another order);
   * every gradient: rtol 1e-4, atol 1e-5 x the tensor's largest entry
@@ -34,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import (arch_kind, get_arch, list_archs,
-                                 missing_module)
+from repro_torch.configs import (NOT_PORTED, arch_kind, get_arch,
+                                 list_archs, missing_module)
 from repro_torch.convert import (lm_params_from_arrays, lm_params_to_arrays,
                                  to_arrays)
 from repro_torch.launch import train as t_launch
@@ -45,6 +50,7 @@ from repro_torch.training.train_loop import TrainConfig, make_train_step
 from repro_torch.training.tree import leaves, module_tree, tree_map
 
 DENSE = ["olmo-1b", "stablelm-3b", "qwen3-14b"]
+MOE = ["olmoe-1b-7b", "llama4-scout-17b-a16e"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 2, 32
 
@@ -88,19 +94,23 @@ def _torch(b: dict) -> dict:
             else torch.from_numpy(v).long() for k, v in b.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_loss_and_grads_match_reference(arch):
     import jax
     j_tf, jcfg, params, model = _reference(arch)
     b = _batch(jcfg.vocab, 0)
-    want_logits, _ = j_tf.forward(params, _jax(b)["tokens"], jcfg)
+    want_logits, want_aux = j_tf.forward(params, _jax(b)["tokens"], jcfg)
     want_loss, want_g = jax.value_and_grad(
         lambda p: j_tf.loss_fn(p, _jax(b), jcfg))(params)
     with torch.no_grad():
         logits, aux = t_tf.forward(model, _torch(b)["tokens"])
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                **TOL)
-    assert float(aux) == 0.0
+    if jcfg.moe:
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+        assert float(aux) > 0.0
+    else:
+        assert float(aux) == 0.0
     loss = t_tf.loss_fn(model, _torch(b))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), **TOL)
@@ -112,7 +122,7 @@ def test_forward_loss_and_grads_match_reference(arch):
         _grad_close(g, w, f"gradient leaf {i}")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_adamw_steps_match_reference(arch):
     """Three steps of make_train_step (AdamW at lr 1e-3, clip 1.0) on the
     reference's batches 0..2: loss and grad norm each step, the parameters
@@ -152,14 +162,26 @@ def test_adamw_steps_match_reference(arch):
                 _grad_close(g, w, f"{what} leaf {i}")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _no_drop(moe):
+    return dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_and_decode_match_reference(arch):
     """prefill's last-token logits and cache, then one decode step into a
     cache grown to S + 1 (the reference smoke test's protocol), both
     against the reference; the decoded logits also equal a full forward
-    over S + 1 tokens."""
+    over S + 1 tokens (an MoE config at no-drop capacity, E / K: decode's
+    one-token groups never drop, the full forward's would)."""
     import jax.numpy as jnp
     j_tf, jcfg, params, model = _reference(arch)
+    if jcfg.moe:
+        jcfg = dataclasses.replace(jcfg, moe=_no_drop(jcfg.moe))
+        model.cfg = dataclasses.replace(model.cfg, moe=_no_drop(
+            model.cfg.moe))
+        for layer in model.layers:
+            layer.cfg = model.cfg
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, 16))
     j_logits, j_cache = j_tf.prefill(params, jnp.asarray(toks), jcfg,
                                      cache_dtype=jnp.float32)
@@ -235,52 +257,56 @@ def test_mixed_precision_keeps_float32_masters():
 
 
 def test_configs_and_registry_match_reference():
-    """All eleven ids; the dense LMs' configs field by field (the MoE
-    field aside) and their parameter counts at full width; the graph and
+    """All eleven ids, every one resolved (nothing is left to port); the
+    LMs' configs field by field (the MoE ones' ``MoEConfig`` too) and
+    their total and active parameter counts at full width; the graph and
     recsys archs resolve (their configs: test_torch_gnn.py and
-    test_torch_recsys.py); the MoE ones name the module still to
-    port."""
+    test_torch_recsys.py)."""
     from repro.configs import arch_kind as j_kind
     from repro.configs import get_arch as j_get_arch
     from repro.configs import list_archs as j_list
     assert list_archs() == j_list() and len(list_archs()) == 11
     for arch in list_archs():
         assert arch_kind(arch) == j_kind(arch)
-    for arch in DENSE:
+    for arch in DENSE + MOE:
         for preset in ("config", "smoke_config"):
             got = getattr(get_arch(arch), preset)()
             want = getattr(j_get_arch(arch), preset)()
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
+            assert got.active_param_count() == want.active_param_count()
     assert get_arch("olmo-1b").config().param_count() == 1_176_764_416
-    for arch in ("meshgraphnet", "dlrm-mlperf", "din", "deepfm",
-                 "bert4rec"):
+    assert get_arch("olmoe-1b-7b").config().param_count() == 6_919_028_736
+    assert get_arch("llama4-scout-17b-a16e").config().param_count() \
+        == 107_769_364_480
+    assert NOT_PORTED == {}
+    for arch in list_archs():
         assert missing_module(arch) is None
         assert get_arch(arch).KIND == j_kind(arch)
-    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
-        with pytest.raises(NotImplementedError, match=re.escape(
-                missing_module(arch))):
-            get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-5")
 
 
 def test_init_matches_reference_layout():
     """init_params: the reference's names and shapes, layers unstacked,
-    and its parameter count."""
+    a ``moe`` subtree in place of ``mlp`` for the MoE LMs, and its
+    parameter count; a remat policy other than full remat is refused."""
     import jax
-    _, jcfg, params, ref_model = _reference("qwen3-14b")
-    model = t_tf.init_params(torch.Generator().manual_seed(0),
-                             get_arch("qwen3-14b").smoke_config(),
-                             device="cpu")
-    got = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    assert got == {n: tuple(p.shape)
-                   for n, p in ref_model.named_parameters()}
-    assert model.n_params() == sum(x.size for x in
-                                   jax.tree_util.tree_leaves(params))
-    with pytest.raises(NotImplementedError, match="moe.py"):
+    for arch in ("qwen3-14b", *MOE):
+        _, jcfg, params, ref_model = _reference(arch)
+        model = t_tf.init_params(torch.Generator().manual_seed(0),
+                                 get_arch(arch).smoke_config(),
+                                 device="cpu")
+        got = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        assert got == {n: tuple(p.shape)
+                       for n, p in ref_model.named_parameters()}
+        assert model.n_params() == sum(x.size for x in
+                                       jax.tree_util.tree_leaves(params))
+        assert (("layers.0.moe.router" in got)
+                == ("layers.0.mlp.w_up" not in got) == bool(jcfg.moe))
+    with pytest.raises(ValueError, match="remat_policy"):
         t_tf.init_params(torch.Generator(), dataclasses.replace(
-            model.cfg, moe=object()), device="cpu")
+            model.cfg, remat_policy="dots"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -335,17 +361,13 @@ def test_launcher_resume_equals_uninterrupted(capsys, tmp_path):
 
 
 def test_launcher_refusals(capsys, monkeypatch):
-    """asc-splade and the unported MoE family exit 2, as the reference's
-    retrieval kind does; --devices and a missing card exit with an
-    error."""
-    for arch, what in (("asc-splade", "has no train step"),
-                       ("olmoe-1b-7b", "repro_torch/models/moe.py"),
-                       ("llama4-scout-17b-a16e",
-                        "repro_torch/models/moe.py")):
-        with pytest.raises(SystemExit) as e:
-            t_launch.main(["--arch", arch, "--device", "cpu"])
-        assert e.value.code == 2
-        assert what in capsys.readouterr().err
+    """asc-splade exits 2, as the reference's retrieval kind does (the MoE
+    archs train: test_torch_moe.py); --devices and a missing card exit
+    with an error."""
+    with pytest.raises(SystemExit) as e:
+        t_launch.main(["--arch", "asc-splade", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "has no train step" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="sharding.py"):
         t_launch.main(["--devices", "4", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
