@@ -82,7 +82,10 @@ nonzero and prints no result):
                sequence it replaced. K1 is also checked and timed at the
                level-0 shape (207 rows), K2 and the planner at the
                superblock wave (G = 23; every superblock wave of a batch
-               for the planner).
+               for the planner). It runs after the dist phase and before
+               the encoder, before any model phase (its profiler pass is
+               the first since the retrieval phases; the moe phase
+               profiles decode steps), and its line is printed at the end.
 
   8. frontend — the streaming front-end (``serving/frontend.py``) over
                the serve phase's engine, closed loop, max_batch 64, every
@@ -235,7 +238,28 @@ nonzero and prints no result):
                the launcher for olmoe-1b-7b and llama4-scout-17b-a16e at
                ``--preset smoke`` through ``launch_and_resume`` (the full
                presets need 110 GB and more);
- 21. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
+ 21. train_sharded — sharded training, its two gloo ranks on the one
+               card: ``python -m repro_torch.launch.train --arch olmo-1b
+               --preset full --devices 2 --steps 10 --batch 8 --seq 512
+               --ckpt-dir D`` (mesh (2, 1), FSDP over "data"), killed
+               with its ranks once its step-4 checkpoint is on disk (a
+               preemption at step 5): its mesh line, finite losses for
+               steps 0-4 within ``TS_LOSS_RTOL`` of train_lm's one-device
+               run of the same command and step 0's of a one-device step
+               made here; the checkpoint (whole tensors) resumed on one
+               device for steps 5-9 within the same of train_lm's; step
+               ms, tokens/s, MFU, the card's peak memory (``nvidia-smi``,
+               polled) and each rank's (half of what the card gained
+               while the two symmetric ranks ran), beside train_lm's. Then olmoe at its published widths,
+               depth 2, on a (1, 2) mesh through the expert-parallel
+               all-to-all (fp32, 2 x 128 tokens): at no-drop capacity the
+               loss (rtol 1e-5) and every gradient (1e-4 of its largest
+               entry) against one device, and at capacity 1.25 the kept
+               share of picks of each source shard. Then DLRM's 53.25 GB
+               table row-sharded over the two ranks (26.6 GB each): a
+               2,048-example lookup, timed, and ids across the shard
+               boundary against the rows gathered whole (exact);
+ 22. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
                on the card, stage by stage (the planner and K2 must
                launch; rank-safe recall@10 1.000; every result against
                the on-card plain path with ``check_audited``, each served
@@ -243,12 +267,13 @@ nonzero and prints no result):
                ``python -m`` with no flag: exit 0 and the reference's
                lines.
 
-Phases 8–21 run after the lifecycle phase and before the kernels phase.
-Every row of the ``kernels`` line gives its launches in each phase
-(``path_launches``: serve, superblock, pipelined, lifecycle, frontend,
-dist (one count a rank), encoder, train_encoder, train_lm, recsys_asc,
-recsys, train_recsys, train_gnn, moe, train_moe, examples) and, under
-``catalog``, its times at the recsys_asc phase's shapes.
+Phases 8–22 run after the lifecycle phase, the kernels phase (7) between
+dist and encoder. Every row of the ``kernels`` line gives its launches in
+each phase (``path_launches``: serve, superblock, pipelined, lifecycle,
+frontend, dist (one count a rank), encoder, train_encoder, train_lm,
+recsys_asc, recsys, train_recsys, train_gnn, moe, train_moe,
+train_sharded, examples) and, under ``catalog``, its times at the
+recsys_asc phase's shapes.
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -2768,7 +2793,12 @@ def phase_train_lm(torch) -> dict:
         mfu_peak="989 TFLOP/s dense bf16 (H100 SXM data sheet)",
         peak_memory_mb=round(m["peak_memory_bytes"] / 1e6, 1),
         launches=launches, seconds=round(time.perf_counter() - t_phase, 2))
-    return {"launches": launches}
+    return {"launches": launches, "summary": dict(
+        losses=[h["loss"] for h in hist],
+        step_ms_median=round(median_s * 1e3, 2),
+        tokens_per_s=round(tokens / median_s, 1),
+        mfu=round(flops / median_s / BF16_FLOP_S, 4),
+        peak_memory_mb=round(m["peak_memory_bytes"] / 1e6, 1))}
 
 
 # ---------------------------------------------------------------------------
@@ -3745,6 +3775,469 @@ def phase_train_moe(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_sharded: sharded training over ranks that share the card
+# ---------------------------------------------------------------------------
+
+TS_ARCH = "olmo-1b"
+TS_DEVICES = 2              # the launcher's (2, 1) mesh: FSDP over "data"
+TS_STEPS, TS_BATCH, TS_SEQ = 10, 8, 512
+TS_RESUME_AT = 4            # the launcher checkpoints every 5 steps
+TS_LOSS_RTOL = 1e-3         # bf16 compute: the ranks' sums run in other orders
+TS_MOE_BATCH, TS_MOE_SEQ = 2, 128
+TS_MOE_SEED = SEED + 70
+TS_DLRM_BATCH = 2048
+TS_DLRM_SLICE = 65_536      # rows around the shard boundary held whole
+TS_DLRM_REPS = 20
+TS_MEM_POLL_S = 0.5
+
+
+def _card_memory_mb(stop=None, out: list | None = None) -> float | None:
+    """The card's used memory in MB (every process's: ``nvidia-smi``; in
+    a container its per-process list can show the card's total for each
+    process, so it does not part the ranks). With ``stop`` and ``out``,
+    poll it into ``out`` until ``stop`` is set."""
+    while True:
+        try:
+            got = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=10).stdout.split()
+            mb = float(got[0]) if got else None
+        except (OSError, subprocess.SubprocessError, ValueError):
+            mb = None
+        if stop is None:
+            return mb
+        if mb is not None:
+            out.append(mb)
+        if stop.wait(TS_MEM_POLL_S):
+            return None
+
+
+def _ts_moe_cfg(capacity_factor: float | None = None):
+    """olmoe at its published widths, depth 2, fp32; capacity factor E / K
+    (no pick dropped) unless given."""
+    from repro_torch.configs import get_arch
+    full = get_arch(MOE_ARCH).config()
+    moe = full.moe
+    cf = moe.n_experts / moe.top_k if capacity_factor is None \
+        else capacity_factor
+    return dataclasses.replace(
+        full, n_layers=MOE_CHECK_DEPTH, dtype="float32",
+        moe=dataclasses.replace(moe, capacity_factor=cf))
+
+
+def _ts_moe_batch(vocab: int) -> dict:
+    from repro_torch.data.pipeline import LMDataSpec, lm_batch
+    return {k: v[:, :TS_MOE_SEQ] for k, v in lm_batch(
+        LMDataSpec(vocab, TS_MOE_SEQ + 1, TS_MOE_BATCH), 0).items()}
+
+
+def _mb(n: float | None) -> float | None:
+    return None if n is None else round(n / 1e6, 1)
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_mb(dev) -> float | None:
+    import torch
+    if dev.type != "cuda":
+        return None
+    return round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)
+
+
+def _ts_moe_grads(model, batch, torch) -> tuple:
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.tree import leaves, module_tree
+    loss = tf.loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, leaves(module_tree(model)))
+    return float(loss.detach()), grads
+
+
+def _ts_moe_rank(rank: int, device_type: str, cfgs: dict,
+                 batch: dict) -> tuple[dict, list | None]:
+    """One rank of the (1, 2) mesh: olmoe at depth 2 with the experts split
+    over 'model' (the all-to-all path), at no-drop capacity
+    (``cfgs["no_drop"]``), then at capacity 1.25 (``cfgs["cf_1.25"]``).
+    Returns the rows and, on rank 0, the no-drop run's whole gradients
+    (on the host)."""
+    import torch
+
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(rank, device_type)
+    mesh = make_host_mesh((1, TS_DEVICES), ("data", "model"), dev.type)
+    rules = sh.lm_rules(mesh)
+    out, whole = {}, None
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(
+        TS_MOE_SEED), cfgs["no_drop"], device=dev)
+    par.shard_module(model, rules, tf.param_axes(model.cfg))
+    for name, cfg in cfgs.items():
+        set_lm_cfg(model, cfg)
+        calls, kept = [], []
+        real_a2a, real_dispatch = par.all_to_all, moe.dispatch
+
+        def a2a(x, g):
+            calls.append(tuple(x.shape))
+            return real_a2a(x, g)
+
+        def dispatch(x, gates, idx, E, C):
+            res = real_dispatch(x, gates, idx, E, C)
+            kept.append(float(res[1][3].float().mean()))
+            return res
+
+        par.all_to_all, moe.dispatch = a2a, dispatch
+        try:
+            _sync(dev)
+            t0 = time.perf_counter()
+            with par.use_layout(par.Layout(rules, par.batch_axes_of(rules))):
+                loss, grads = _ts_moe_grads(model, batch, torch)
+            _sync(dev)
+            fb_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            par.all_to_all, moe.dispatch = real_a2a, real_dispatch
+        row = dict(loss=loss, a2a_calls=len(calls), kept=kept,
+                   fwd_bwd_ms=round(fb_ms, 1), peak_mb=_peak_mb(dev))
+        if name == "no_drop":
+            # collectives: both ranks gather, rank 0 keeps them
+            full = [par.full(g).cpu() for g in grads]
+            whole = full if rank == 0 else None
+            del full
+        out[name] = row
+        del grads
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, whole
+
+
+def _ts_moe_reference(cfg, batch: dict, device_type: str,
+                      got: list) -> dict:
+    """The no-drop run on one device (the same draw, no mesh): its loss
+    and each gradient's largest difference to ``got`` over its largest
+    entry."""
+    import torch
+
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.models import transformer as tf
+    dev = rank_device(0, device_type)
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(
+        TS_MOE_SEED), cfg, device=dev)
+    loss, grads = _ts_moe_grads(
+        model, {k: v.to(dev) for k, v in batch.items()}, torch)
+    errs = [float((g.cpu() - w).abs().max()) / (float(w.abs().max()) or 1.0)
+            for w, g in zip(got, grads)]
+    return {"ref_loss": loss, "grad_rel_err_max": max(errs)}
+
+
+def _ts_rank(rank: int, device_type: str, cfgs: dict, batch: dict,
+             dlrm_cfg, n_slice: int) -> dict:
+    """One rank of the (1, 2) meshes: the all-to-all MoE, then DLRM's
+    row-sharded table (the MoE's memory freed first); then rank 0 alone
+    runs the MoE's no-drop step on one device against the gathered
+    gradients."""
+    moe, whole = _ts_moe_rank(rank, device_type, cfgs, batch)
+    out = {"moe": moe,
+           "dlrm": _ts_dlrm_rank(rank, device_type, dlrm_cfg, n_slice)}
+    if rank == 0:
+        moe["no_drop"].update(_ts_moe_reference(cfgs["no_drop"], batch,
+                                                device_type, whole))
+    return out
+
+
+def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
+    """One rank of the (1, 2) mesh holding half of DLRM's table (its rows
+    over 'model'): the lookup of a batch of 2,048 examples, timed, and of
+    ids in a slice of rows across the shard boundary against the slice
+    gathered whole."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import pipeline as pl
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.models.embedding import embedding_init, embedding_lookup
+    dev = rank_device(rank, device_type)
+    mesh = make_host_mesh((1, TS_DEVICES), ("data", "model"), dev.type)
+    rules = sh.recsys_rules(mesh)
+    rows = cfg.n_sparse * cfg.vocab_per_table
+    spec = sh.divisible_spec(rules, ("table_rows", "embed"),
+                             (rows, cfg.embed_dim))
+    pl_ = sh.placements(mesh, spec)
+    t0 = time.perf_counter()
+    block = embedding_init(torch.Generator(device=dev).manual_seed(
+        TS_MOE_SEED + rank), rows // TS_DEVICES, cfg.embed_dim, device=dev)
+    table = DTensor.from_local(block, mesh, pl_, run_check=False,
+                               shape=(rows, cfg.embed_dim),
+                               stride=(cfg.embed_dim, 1))
+    _sync(dev)
+    draw_s = time.perf_counter() - t0
+    b = pl.dlrm_batch(cfg, TS_DLRM_BATCH, 0)
+    ids = (b["sparse"].long() + torch.arange(cfg.n_sparse)[None, :]
+           * cfg.vocab_per_table).to(dev)
+    layout = par.Layout(rules, par.batch_axes_of(rules))
+    with par.use_layout(layout), torch.no_grad():
+        emb = embedding_lookup(table, ids)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(TS_DLRM_REPS):
+            emb = embedding_lookup(table, ids)
+        _sync(dev)
+        lookup_ms = (time.perf_counter() - t0) / TS_DLRM_REPS * 1e3
+        # ids in [lo, lo + n_slice), half of it on each rank
+        lo = rows // 2 - n_slice // 2
+        g = torch.Generator().manual_seed(TS_MOE_SEED)
+        sl_ids = (torch.randint(0, n_slice, ids.shape, generator=g)
+                  + lo).to(dev)
+        got = embedding_lookup(table, sl_ids)
+        mine = (block[-n_slice // 2:] if rank == 0
+                else block[:n_slice // 2]).contiguous()
+        whole = torch.empty((n_slice, cfg.embed_dim), device=dev)
+        dist.all_gather_into_tensor(whole, mine)
+        same = bool(torch.equal(got, whole[sl_ids - lo]))
+    return dict(rank=rank, rows=rows, local_rows=block.shape[0],
+                local_gb=round(block.numel() * 4 / 1e9, 2),
+                placements=[str(p) for p in pl_], draw_s=round(draw_s, 2),
+                lookup_ms=round(lookup_ms, 3), slice_equal=same,
+                finite=bool(torch.isfinite(emb).all()),
+                out_shape=list(emb.shape), peak_mb=_peak_mb(dev))
+
+
+def phase_train_sharded(torch, tl: dict) -> dict:
+    """Sharded training with its ranks sharing the card (gloo): OLMo-1B at
+    its published widths and depth through ``python -m
+    repro_torch.launch.train --preset full --devices 2 --steps 10``
+    (mesh (2, 1), FSDP, 8 x 512), stopped (its process group killed)
+    once the step-4 checkpoint it writes after step 4 is on disk: a
+    preemption at step 5. Step 0's loss against a one-device step at the
+    same seed and batch made here; the checkpoint (whole tensors) resumed
+    on one device for steps 5-9 against train_lm's uninterrupted
+    one-device run of the same launcher command (both within
+    ``TS_LOSS_RTOL``); step ms (from the times rank 0's step lines
+    arrive), tokens/s, MFU, the card's peak memory (``nvidia-smi``,
+    polled) and each rank's (half of what the card gained while the two
+    symmetric ranks ran) beside train_lm's. Then olmoe at its
+    published widths, depth 2, on a (1, 2) mesh through the
+    expert-parallel all-to-all: a forward and backward (fp32) at no-drop
+    capacity against the one-device ``apply_moe`` path, and one at
+    capacity 1.25 with its kept share of picks. Then DLRM's 53.25 GB
+    table row-sharded over the two ranks: a 2,048-example lookup, timed,
+    and ids across the shard boundary against the rows gathered whole."""
+    import signal
+    import tempfile
+    import threading
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import LMDataSpec, lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.training.tree import module_tree
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    full = get_arch(TS_ARCH).config()
+    out: dict = {}
+    want = tl["summary"]["losses"]       # train_lm: one device, uninterrupted
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        step_dir = os.path.join(ckpt, f"step_{TS_RESUME_AT:010d}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TS_ARCH, "--preset", "full", "--devices", str(TS_DEVICES),
+               "--steps", str(TS_STEPS), "--batch", str(TS_BATCH), "--seq",
+               str(TS_SEQ), "--ckpt-dir", ckpt]
+        stop, card = threading.Event(), []
+        before_mb = _card_memory_mb()
+        poll = threading.Thread(target=_card_memory_mb, args=(stop, card),
+                                daemon=True)
+        lines: list[tuple[float, str]] = []
+        with open(os.path.join(tmp, "stderr"), "w+") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                                    text=True, cwd=ROOT,
+                                    start_new_session=True,
+                                    env={**os.environ, "PYTHONPATH": str(SRC)})
+            reader = threading.Thread(target=lambda: lines.extend(
+                (time.perf_counter(), ln.rstrip()) for ln in proc.stdout),
+                daemon=True)
+            reader.start()
+            poll.start()
+            try:
+                while not os.path.isdir(step_dir):
+                    if proc.poll() is not None:
+                        err.seek(0)
+                        raise AssertionError(
+                            f"train_sharded: the launcher exited "
+                            f"{proc.returncode} before its step-"
+                            f"{TS_RESUME_AT} checkpoint:\n"
+                            f"{err.read()[-3000:]}")
+                    if time.perf_counter() - t0 > 900:
+                        raise AssertionError("train_sharded: no step-"
+                                             f"{TS_RESUME_AT} checkpoint "
+                                             f"in 900 s")
+                    time.sleep(0.2)
+                run_s = time.perf_counter() - t0
+            finally:
+                # the preemption: the launcher and its ranks, all at once
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                reader.join(timeout=10)
+                stop.set()
+                poll.join()
+        steps = {int(m[1]): (t, float(m[2])) for t, ln in lines
+                 for m in [re.match(r"\[fit\] step (\d+): loss=(\S+)", ln)]
+                 if m}
+        text = [ln for _, ln in lines]
+        want_mesh = f"[train] mesh: {{'data': {TS_DEVICES}, 'model': 1}}"
+        if not text or text[0] != want_mesh \
+                or sorted(steps)[:TS_RESUME_AT + 1] != list(
+                    range(TS_RESUME_AT + 1)):
+            raise AssertionError(f"train_sharded: the launcher's lines: "
+                                 f"{text[:8]}")
+        losses = [steps[i][1] for i in range(TS_RESUME_AT + 1)]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_sharded: losses {losses}")
+        # wait for the killed ranks' memory to come back to the card
+        free_by = time.perf_counter() + 60
+        while (torch.cuda.mem_get_info()[0] < 0.8 * torch.cuda.mem_get_info()[1]
+               and time.perf_counter() < free_by):
+            time.sleep(0.5)
+
+        # one device, here: the launcher's init (seed 0) and batch 0
+        t0 = time.perf_counter()
+        model = tf.init_params(torch.Generator().manual_seed(0), full,
+                               device=DEVICE)
+        init_s = time.perf_counter() - t0
+        spec = LMDataSpec(full.vocab, TS_SEQ + 1, TS_BATCH)
+
+        def batch(step: int) -> dict:
+            return {k: v[:, :TS_SEQ].to(DEVICE)
+                    for k, v in lm_batch(spec, step).items()}
+
+        with torch.no_grad():
+            loss0 = float(tf.loss_fn(model, batch(0)))
+        if not math.isclose(loss0, losses[0], rel_tol=TS_LOSS_RTOL):
+            raise AssertionError(f"train_sharded: step 0's loss {losses[0]} "
+                                 f"on the mesh against {loss0} on one "
+                                 f"device")
+        # the mesh's step-4 checkpoint resumed on one device
+        opt = opt_lib.adamw(opt_lib.cosine_schedule(
+            3e-4, warmup=max(1, TS_STEPS // 10), total=TS_STEPS))
+        state = opt.init(module_tree(model))
+        mgr = CheckpointManager(ckpt)
+        t0 = time.perf_counter()
+        restored = mgr.restore_into(TS_RESUME_AT, {
+            "step": 0, "params": model, "opt_state": state})
+        model = mgr.cast_like(restored["params"], model)
+        state = mgr.cast_like(restored["opt_state"], state)
+        del restored
+        restore_s = time.perf_counter() - t0
+        ckpt_mb = sum(os.path.getsize(os.path.join(step_dir, fn))
+                      for fn in os.listdir(step_dir)) / 1e6
+        step = make_train_step(tf.loss_fn, opt, TrainConfig(steps=TS_STEPS))
+        resumed = []
+        for s in range(TS_RESUME_AT + 1, TS_STEPS):
+            model, state, mm = step(model, state, batch(s), s)
+            resumed.append(float(mm["loss"]))
+        del model, state, mm
+        torch.cuda.empty_cache()
+    for s, (a, b) in enumerate(zip(resumed, want[TS_RESUME_AT + 1:]),
+                               TS_RESUME_AT + 1):
+        if not math.isclose(a, b, rel_tol=TS_LOSS_RTOL):
+            raise AssertionError(f"train_sharded: resumed step {s}'s loss "
+                                 f"{a} against one device's uninterrupted "
+                                 f"{b}")
+    for s, (a, b) in enumerate(zip(losses, want)):
+        if not math.isclose(a, b, rel_tol=TS_LOSS_RTOL):
+            raise AssertionError(f"train_sharded: step {s}'s loss {a} on "
+                                 f"the mesh against one device's {b}")
+    # steps 1-4: the times between rank 0's step lines (step 0 warms up;
+    # the checkpoint comes after step 4's line)
+    step_s = sorted(steps[i][0] - steps[i - 1][0]
+                    for i in range(2, TS_RESUME_AT + 1))
+    median_s = step_s[len(step_s) // 2]
+    tokens = TS_BATCH * TS_SEQ
+    flops = 6.0 * full.param_count() * tokens
+    out["olmo"] = dict(
+        launcher=" ".join(cmd[1:]), mesh={"data": TS_DEVICES, "model": 1},
+        backend="gloo", stopped_after_s=round(run_s, 2),
+        losses=[round(x, 4) for x in losses],
+        one_device_loss0=round(loss0, 4), one_device_init_s=round(init_s, 2),
+        resumed_at=TS_RESUME_AT,
+        resumed_losses=[round(x, 4) for x in resumed],
+        one_device_losses=[round(x, 4) for x in want],
+        checkpoint_mb=round(ckpt_mb, 1), restore_s=round(restore_s, 2),
+        loss_rtol=TS_LOSS_RTOL,
+        step_ms_median=round(median_s * 1e3, 2),
+        step_ms=[round(x * 1e3, 2) for x in step_s],
+        tokens_per_s=round(tokens / median_s, 1),
+        mfu=round(flops / median_s / BF16_FLOP_S, 4),
+        card_used_mb_before=before_mb,
+        card_used_mb_max=max(card) if card else None,
+        # the two ranks run the same shapes: each holds half of what the
+        # card gained while they ran
+        rank_used_mb=(round((max(card) - before_mb) / TS_DEVICES, 1)
+                      if card and before_mb is not None else None),
+        train_lm={k: v for k, v in tl["summary"].items() if k != "losses"})
+
+    # olmoe at depth 2 through the all-to-all, then DLRM's whole table,
+    # its rows split: one spawn of two ranks on (1, 2) meshes
+    from repro_torch.configs import dlrm_mlperf
+    cfg = _ts_moe_cfg()
+    cfgs = {"no_drop": cfg, "cf_1.25": _ts_moe_cfg(1.25)}
+    t0 = time.perf_counter()
+    both = spawn_ranks(_ts_rank, TS_DEVICES,
+                       (DEVICE, cfgs, _ts_moe_batch(cfg.vocab),
+                        dlrm_mlperf.config(), TS_DLRM_SLICE),
+                       timeout_s=900.0)
+    ranks_s = time.perf_counter() - t0
+    res, dl = [r["moe"] for r in both], [r["dlrm"] for r in both]
+    nd = res[0]["no_drop"]
+    if not (all(r[k]["a2a_calls"] > 0 for r in res for k in r)
+            and math.isclose(nd["loss"], nd["ref_loss"], rel_tol=1e-5)
+            and nd["grad_rel_err_max"] < 1e-4):
+        raise AssertionError(f"train_sharded: the all-to-all MoE against "
+                             f"one device: {res}")
+    out["olmoe_a2a"] = dict(
+        mesh={"data": 1, "model": TS_DEVICES}, depth=cfg.n_layers,
+        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        batch=TS_MOE_BATCH, seq=TS_MOE_SEQ,
+        no_drop_capacity_factor=cfg.moe.capacity_factor,
+        loss=round(nd["loss"], 6), one_device_loss=round(nd["ref_loss"], 6),
+        grad_rel_err_max=nd["grad_rel_err_max"], tolerance=dict(
+            loss_rtol=1e-5, grad_err_over_max=1e-4),
+        a2a_calls=[r["no_drop"]["a2a_calls"] for r in res],
+        fwd_bwd_ms=[r["no_drop"]["fwd_bwd_ms"] for r in res],
+        cf_1_25=dict(loss=round(res[0]["cf_1.25"]["loss"], 6),
+                     kept=[[round(k, 4) for k in r["cf_1.25"]["kept"]]
+                           for r in res],
+                     fwd_bwd_ms=[r["cf_1.25"]["fwd_bwd_ms"] for r in res]),
+        rank_peak_mb=[r["cf_1.25"]["peak_mb"] for r in res])
+    if not all(r["slice_equal"] and r["finite"] for r in dl):
+        raise AssertionError(f"train_sharded: the row-sharded lookup: {dl}")
+    out["dlrm_lookup"] = dict(ranks=dl)
+    out["a2a_and_lookup_s"] = round(ranks_s, 2)
+    launches = launch_counts()
+    log("train_sharded", **out, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # examples: the root quickstart and serving examples on the card
 # ---------------------------------------------------------------------------
 
@@ -3905,14 +4398,15 @@ def superblock_plan_times(args, torch) -> dict:
 
 
 def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
-                  enc, te, tl, ra, rs, tr, tg, mo, tm, ex,
                   torch) -> list[dict]:
     """Each kernel against its plain version at the main path's inputs
     (plus ragged shapes), with kernel, plain and library times; ``sb``
     (the superblock phase) adds K1's level-0 shape and K2 and K3 at the
-    superblock wave width, ``ra`` (recsys_asc) each kernel's times at the
-    catalog's shapes. Each row's ``launches`` is the serve phase's count,
-    ``path_launches`` every phase's."""
+    superblock wave width. It runs before the model phases, so its
+    profiler pass (``device_ms``) is the process's first after the
+    retrieval phases. Each row's ``launches`` is the serve phase's count,
+    ``path_launches`` the phases' before it; :func:`finish_kernel_rows`
+    adds the later phases' launches and the catalog's times."""
     from repro_torch.kernels.plan_wave.compact import (compact_front,
                                                        compact_front_plain)
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
@@ -3949,19 +4443,10 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                 "lifecycle": lc["launches"][name],
                 "frontend": fe["launches"][name],
                 "dist": [r[name] for r in dist["launches"]],
-                "encoder": enc["launches"][name],
-                "train_encoder": te["launches"][name],
-                "train_lm": tl["launches"][name],
-                "recsys_asc": ra["launches"][name],
-                "recsys": rs["launches"][name],
-                "train_recsys": tr["launches"][name],
-                "train_gnn": tg["launches"][name],
-                "moe": mo["launches"][name],
-                "train_moe": tm["launches"][name],
-                "examples": ex["launches"][name]}
+                "_name": name}
 
     def catalog(*keys):
-        return {k: ra["kernels"][k] for k in keys if k in ra["kernels"]}
+        return {"_keys": keys}
 
     # ---- K1: the segment bounds, at both batch sizes of the main path
     # and at the two-level walk's level 0 ----
@@ -4302,6 +4787,19 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
     return rows
 
 
+def finish_kernel_rows(rows: list[dict], later: dict, ra: dict) -> None:
+    """Add the phases after the kernels phase to each row's
+    ``path_launches`` (``later``: phase name -> its result) and the
+    recsys_asc phase's times at the catalog's shapes."""
+    for row in rows:
+        name = row["path_launches"].pop("_name")
+        row["path_launches"].update(
+            {phase: res["launches"][name] for phase, res in later.items()})
+        keys = row["catalog"].pop("_keys")
+        row["catalog"] = {k: ra["kernels"][k] for k in keys
+                          if k in ra["kernels"]}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     # cuBLAS reads this when it first makes its handle; the train_encoder
@@ -4335,19 +4833,22 @@ def main() -> int:
         saved = os.path.join(world_dir, "index")
         phase_cli(index, fe, saved, torch)
         dist = phase_dist(geo, index, queries, fresh_ms, saved, torch)
-    enc = phase_encoder(engine, index, torch)
-    te = phase_train_encoder(torch)
-    tl = phase_train_lm(torch)
-    ra = phase_recsys_asc(torch)
-    rs = phase_recsys(torch)
-    tr = phase_train_recsys(torch)
-    tg = phase_train_gnn(torch)
-    mo = phase_moe(torch)
-    tm = phase_train_moe(torch)
-    ex = phase_examples(torch)
+    # before any model phase: its profiler pass is then the process's
+    # first since the retrieval phases (the moe phase profiles decode)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
-                         dist, enc, te, tl, ra, rs, tr, tg, mo, tm, ex,
-                         torch)
+                         dist, torch)
+    later = {"encoder": phase_encoder(engine, index, torch),
+             "train_encoder": phase_train_encoder(torch)}
+    later["train_lm"] = tl = phase_train_lm(torch)
+    later["recsys_asc"] = ra = phase_recsys_asc(torch)
+    later["recsys"] = phase_recsys(torch)
+    later["train_recsys"] = phase_train_recsys(torch)
+    later["train_gnn"] = phase_train_gnn(torch)
+    later["moe"] = phase_moe(torch)
+    later["train_moe"] = phase_train_moe(torch)
+    later["train_sharded"] = phase_train_sharded(torch, tl)
+    later["examples"] = phase_examples(torch)
+    finish_kernel_rows(rows, later, ra)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)
         phase_profile(pl["engine"], queries, torch)

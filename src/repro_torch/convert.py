@@ -15,7 +15,11 @@ dicts, tensors, Python scalars) into the reference's layout, stacking
 each list of per-layer dicts leaf by leaf, and :func:`load_arrays` goes
 back. ``training/checkpoint.py`` saves and restores through them, in
 ``jax.tree_util.tree_flatten``'s leaf order, so a checkpoint either
-package writes restores in the other.
+package writes restores in the other. A sharded tree (``DTensor``
+leaves, ``distributed/parallelize.py``) goes out as whole tensors (every
+rank gathers them, in leaf order) and comes back as each rank's blocks of
+the live placements, so a checkpoint from one mesh restores on another
+mesh or on one device.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ class LayerStack:
     def __init__(self, items):
         self.items = list(items)
 
+    @property
+    def shape(self) -> tuple:
+        return (len(self.items), *self.items[0].shape)
+
 
 def reference_view(tree):
     """``tree`` in the reference's layout without copying: each module
@@ -87,11 +95,13 @@ def reference_view(tree):
 
 def host_copy(x) -> np.ndarray:
     """A numpy copy that owns its memory (the caller may go on updating
-    the tensor in place)."""
+    the tensor in place); a ``DTensor`` is gathered whole first (a
+    collective: every rank calls it)."""
     if isinstance(x, LayerStack):
         return np.stack([host_copy(t) for t in x.items])
     if isinstance(x, torch.Tensor):
-        x = x.detach()
+        from repro_torch.distributed.parallelize import full
+        x = full(x.detach())
         return (x.cpu() if x.device.type != "cpu" else x.clone()).numpy()
     return np.asarray(x)
 
@@ -104,8 +114,16 @@ def to_arrays(tree):
 
 
 def _like(a, live: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, order="C")).to(device=live.device,
-                                                       dtype=live.dtype)
+    """``a`` on ``live``'s device and dtype, as this rank's block of
+    ``live``'s placements if it is a ``DTensor``."""
+    from repro_torch.distributed.parallelize import like
+    return like(torch.from_numpy(np.array(a, order="C")).to(
+        device=live.device, dtype=live.dtype), live)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def load_arrays(arrays, live):
@@ -119,7 +137,8 @@ def load_arrays(arrays, live):
                             strict=True):
                 for i, t in (enumerate(x.items) if isinstance(x, LayerStack)
                              else [(None, x)]):
-                    t.copy_(_like(a if i is None else a[i], t))
+                    _local(t).copy_(_local(_like(a if i is None else a[i],
+                                                 t)))
         return live
     if isinstance(live, dict):
         return {k: load_arrays(arrays[k], v) for k, v in live.items()}

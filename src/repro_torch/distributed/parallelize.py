@@ -1,0 +1,523 @@
+"""Sharded training: parameters placed by the sharding rules, one process
+a rank.
+
+The reference lays one program over the mesh and lets GSPMD place every
+value from the rules. The port runs one process a rank
+(``launch/mesh.py``) and writes the rank's program out, as the
+reference's own ``shard_map`` paths do:
+
+  * **parameters** are ``DTensor``s on the ``DeviceMesh``, each holding
+    the block its placement (``sharding.shard_with_shapes``) gives this
+    rank: ``w_fsdp`` over the data axes (FSDP), ``w_mlp``, ``w_vocab``,
+    ``experts`` and ``table_rows`` over 'model'. AdamW's moments are
+    ``zeros_like`` of them and so take their placement; the masters stay
+    in their own dtype (float32);
+  * **the batch** is split over the data axes (:func:`local_batch`; a
+    batch that does not divide them stays whole on every rank, as the
+    reference's embedding lookup falls back to a replicated id batch);
+  * **at use** a weight is cast to the compute dtype and then gathered
+    over the axes it is split on (:func:`unshard`): the FSDP all-gather
+    moves compute-dtype bytes, and its backward is a reduce-scatter over
+    the batch axes (a weight replicated over them has its gradient summed
+    over them). A caller may keep an axis split: the expert-parallel MoE
+    keeps 'model' (``models/moe.py``), the row-sharded lookup keeps
+    'table_rows' (``models/embedding.py``);
+  * **losses** are shares: a rank's loss is its part of the whole
+    batch's (a mean divides by the whole batch's count, :func:`batch_sum`),
+    so the ranks' losses over the batch axes add up to the reference's,
+    and their gradients too.
+
+Compute that no axis splits runs whole on every rank of that axis, with
+the same inputs, so its gradients agree there: the dense layers on
+'model' (heads, MLP, vocab), a whole graph on every rank.
+
+Every collective is a raw ``torch.distributed`` call on this rank's plain
+tensors, in the autograd functions below. ``DTensor`` is only the
+parameters' container (``from_local``/``to_local``, which move nothing):
+under gloo on a CUDA tensor, torch 2.11's ``DTensor`` collectives crash
+the ranks (SIGSEGV) while the raw collectives run
+(``tools/gloo_cuda_probe.py``), and ``fully_shard`` goes through the
+former. Reductions of 16-bit floats run in float32, and 16-bit gathers
+and all-to-alls move the raw bytes (a ``uint8`` view of the last dim),
+which every backend carries.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.distributed import sharding as sh
+
+_state = threading.local()
+_groups: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a rank's program is laid over ``rules.mesh``: the rules, and
+    the mesh axes the batch is split over (empty: every rank computes
+    the whole batch)."""
+    rules: sh.ShardingRules
+    batch_axes: tuple[str, ...]
+
+    @property
+    def mesh(self):
+        return self.rules.mesh
+
+
+def batch_axes_of(rules: sh.ShardingRules) -> tuple[str, ...]:
+    """The mesh axes the rules put the batch on."""
+    spec = rules.spec("batch")
+    return sh.entry_axes(spec[0]) if len(spec) else ()
+
+
+@contextlib.contextmanager
+def use_layout(layout: Layout | None):
+    """Install ``layout``'s rules and batch axes for the code inside."""
+    prev = getattr(_state, "layout", None)
+    _state.layout = layout
+    try:
+        with sh.use_rules(layout.rules if layout else None):
+            yield layout
+    finally:
+        _state.layout = prev
+
+
+def current_layout() -> Layout | None:
+    return getattr(_state, "layout", None)
+
+
+def in_context(fn):
+    """``fn``, run under the layout and rules installed now wherever it is
+    called later. ``torch.utils.checkpoint`` recomputes a layer inside the
+    backward, which the autograd engine runs on a thread of its own for a
+    CUDA tensor, where this thread's layout is not installed: the
+    recompute would take another path (the all-to-all or not) and sum
+    another batch."""
+    layout, rules = current_layout(), sh.current_rules()
+
+    def run(*args, **kwargs):
+        prev = current_layout()
+        _state.layout = layout
+        try:
+            with sh.use_rules(rules):
+                return fn(*args, **kwargs)
+        finally:
+            _state.layout = prev
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Groups and coordinates
+# ---------------------------------------------------------------------------
+
+def coordinate(mesh, axis: str) -> int:
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]
+
+
+def group(mesh, axes) -> dist.ProcessGroup | None:
+    """The process group of this rank's line along ``axes`` (one axis or
+    several, in mesh order; rank order is the row-major order of their
+    coordinates); None for no axes."""
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _groups:
+        # every rank creates every line's group, in one order
+        names = mesh.mesh_dim_names
+        ranks = mesh.mesh
+        dims = [names.index(a) for a in axes]
+        other = [i for i in range(len(names)) if i not in dims]
+        lines = ranks.permute(*other, *dims).reshape(
+            -1, math.prod(ranks.shape[i] for i in dims))
+        mine = None
+        for line in lines.tolist():
+            g = dist.new_group(line)
+            if dist.get_rank() in line:
+                mine = g
+        _groups[key] = mine
+    return _groups[key]
+
+
+def axes_size(mesh, axes) -> int:
+    sizes = sh.mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on plain tensors
+# ---------------------------------------------------------------------------
+
+_WIDE = (torch.bfloat16, torch.float16)
+# the names torch 2.13 gives the single-tensor collectives; earlier
+# releases know only the older ones
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous 16-bit float tensor as its bytes (the last dim
+    doubled); other dtypes as they are."""
+    return t.view(torch.uint8) if t.dtype in _WIDE else t
+
+
+def _gather_dim(t: torch.Tensor, dim: int, g) -> torch.Tensor:
+    n = dist.get_world_size(g)
+    x = _bytes(t.movedim(dim, 0).contiguous())
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _all_gather(out, x, group=g)
+    return out.view(t.dtype).movedim(0, dim)
+
+
+def _scatter_sum_dim(t: torch.Tensor, dim: int, g) -> torch.Tensor:
+    """Sum over the group, each rank keeping its chunk of ``dim``."""
+    n = dist.get_world_size(g)
+    x = t.movedim(dim, 0).float().contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    _reduce_scatter(out, x, group=g)
+    return out.to(t.dtype).movedim(0, dim)
+
+
+def _chunk(t: torch.Tensor, dim: int, g) -> torch.Tensor:
+    n = dist.get_world_size(g)
+    return t.chunk(n, dim)[dist.get_rank(g)].contiguous()
+
+
+def _sum(t: torch.Tensor, g) -> torch.Tensor:
+    x = t.float().clone()
+    dist.all_reduce(x, group=g)
+    return x.to(t.dtype)
+
+
+class _Unshard(torch.autograd.Function):
+    """Forward: gather a weight block over the mesh dims listed in
+    ``gather`` ((mesh dim, tensor dim), innermost first). Backward: over
+    each gathered dim, the batch axes' gradient is reduce-scattered and
+    the others' chunked (their ranks hold the same gradient); over
+    ``summed`` (replicated dims on batch axes) it is all-reduced."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, gather, summed, batch):
+        ctx.mesh, ctx.gather, ctx.summed, ctx.batch = (mesh, gather, summed,
+                                                       batch)
+        names = mesh.mesh_dim_names
+        for i, d in gather:
+            w = _gather_dim(w, d, mesh.get_group(names[i]))
+        return w if gather else w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        names = ctx.mesh.mesh_dim_names
+        for i, d in reversed(ctx.gather):
+            grp = ctx.mesh.get_group(names[i])
+            g = (_scatter_sum_dim(g, d, grp) if names[i] in ctx.batch
+                 else _chunk(g, d, grp))
+        for i in ctx.summed:
+            g = _sum(g, ctx.mesh.get_group(names[i]))
+        return g, None, None, None, None
+
+
+def unshard(w, dtype: torch.dtype | None = None, keep=()) -> torch.Tensor:
+    """``w`` for this rank's compute: a plain tensor, cast to ``dtype``
+    (if given, and ``w`` is float32), then gathered over every mesh axis
+    it is split on except those in ``keep`` (logical names resolved by
+    the ambient rules, or mesh axes). A plain ``w`` is only cast."""
+    from torch.distributed.tensor import DTensor, Shard
+    cast = dtype is not None and w.dtype == torch.float32
+    if not isinstance(w, DTensor):
+        return w.to(dtype) if cast else w
+    layout = current_layout()
+    batch = layout.batch_axes if layout is not None else ()
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    rules = sh.current_rules()
+    kept = set()
+    for k in keep:
+        kept.update(sh.entry_axes(rules.table.get(k, k)) if rules else (k,))
+    local = w.to_local(grad_placements=w.placements)
+    if cast:
+        local = local.to(dtype)
+    gather, summed = [], []
+    for i, p in enumerate(w.placements):
+        if isinstance(p, Shard):
+            if names[i] not in kept:
+                gather.append((i, p.dim))
+        elif names[i] in batch:
+            summed.append(i)
+    # gather innermost first: a dim split over (pod, data) is pod-major
+    gather.reverse()
+    if not gather and not summed:
+        return local
+    return _Unshard.apply(local, mesh, tuple(gather), tuple(summed), batch)
+
+
+class _SumShares(torch.autograd.Function):
+    """All-reduce (sum) forward and backward: the value a sum of every
+    rank's share, each rank's loss holding its share of what uses it."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _sum(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad, ctx.g), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward: partial values summed
+    for compute that every rank of the group then runs alike."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return _sum(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's chunk of ``dim`` forward, all-gather backward: a value
+    every rank of the group holds alike, split to work on."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _chunk(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad.contiguous(), ctx.dim, ctx.g), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of ``dim`` forward, this rank's chunk backward: the
+    inverse of :class:`_Split`."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _gather_dim(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _chunk(grad, ctx.dim, ctx.g), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over equal dim-0 chunks, forward and
+    backward (the exchange is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _a2a(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _a2a(grad, ctx.g), None
+
+
+def _a2a(x: torch.Tensor, g) -> torch.Tensor:
+    raw = _bytes(x.contiguous())
+    out = torch.empty_like(raw)
+    dist.all_to_all_single(out, raw, group=g)
+    return out.view(x.dtype)
+
+
+def reduce_from(x: torch.Tensor, g) -> torch.Tensor:
+    return x if g is None else _ReduceFrom.apply(x, g)
+
+
+def split(x: torch.Tensor, dim: int, g) -> torch.Tensor:
+    return x if g is None else _Split.apply(x, dim, g)
+
+
+def gather(x: torch.Tensor, dim: int, g) -> torch.Tensor:
+    return x if g is None else _Gather.apply(x, dim, g)
+
+
+def all_to_all(x: torch.Tensor, g) -> torch.Tensor:
+    return x if g is None else _AllToAll.apply(x, g)
+
+
+def batch_group():
+    layout = current_layout()
+    if layout is None or not layout.batch_axes:
+        return None
+    return group(layout.mesh, layout.batch_axes)
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (no gradient: a count) summed over the batch axes."""
+    g = batch_group()
+    return t if g is None else _sum(t.detach(), g)
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch axes of each rank's ``t`` (a mean over its
+    equal slice of the batch), with the gradient of every rank's share."""
+    g = batch_group()
+    if g is None:
+        return t
+    return _SumShares.apply(t, g) / dist.get_world_size(g)
+
+
+def batch_share(t: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a whole-batch mean: ``t`` over the number of
+    ranks that split the batch (``t`` a mean over this rank's equal
+    slice, or a whole-batch value every rank computed alike)."""
+    g = batch_group()
+    return t if g is None else t / dist.get_world_size(g)
+
+
+# ---------------------------------------------------------------------------
+# Placing a model and a batch
+# ---------------------------------------------------------------------------
+
+def block(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of ``full`` under ``placements`` (no
+    communication: every rank holds ``full``). A dim split over several
+    mesh dims is split in mesh-dim order, as ``DTensor`` splits it."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    out = full
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            out = out.chunk(mesh.size(i), p.dim)[coord[i]]
+    # a copy of a part, so that ``full`` can be freed
+    return out.contiguous() if out.numel() == full.numel() else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def place(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block(full, mesh, placements), mesh,
+                              placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def shard_module(model: nn.Module, rules: sh.ShardingRules,
+                 axes_tree) -> nn.Module:
+    """Replace each parameter of ``model`` (whole on every rank) by a
+    ``DTensor`` of its block under ``shard_with_shapes(rules, axes_tree,
+    <the model in the reference's layout>)``. A per-layer parameter takes
+    its stacked leaf's spec without the leading layer axis (which every
+    table maps to None). Returns ``model``, changed in place."""
+    from repro_torch.convert import LayerStack, reference_view
+    owner = {}
+    for mod in model.modules():
+        for name, p in mod._parameters.items():
+            if p is not None:
+                owner[id(p)] = (mod, name)
+    view = reference_view(model)
+    shardings = sh.shard_with_shapes(rules, axes_tree, view)
+    mesh = rules.mesh
+
+    def put(s: sh.NamedSharding, leaf) -> None:
+        items = leaf.items if isinstance(leaf, LayerStack) else [leaf]
+        spec = s.spec
+        if isinstance(leaf, LayerStack):
+            if spec and spec[0] is not None:
+                raise ValueError(f"the layer axis is sharded: {spec}")
+            spec = sh.PartitionSpec(*spec[1:])
+        pl = sh.placements(mesh, spec)
+        for p in items:
+            mod, name = owner[id(p)]
+            mod._parameters[name] = nn.Parameter(
+                place(p.detach(), mesh, pl), requires_grad=p.requires_grad)
+
+    sh.map_axes(lambda _, s, leaf: put(s, leaf), axes_tree, shardings, view)
+    return model
+
+
+def local_batch(batch: dict, layout: Layout,
+                replicated=("negatives",)) -> tuple[dict, tuple]:
+    """This rank's rows of ``batch`` (split on dim 0 over the batch axes)
+    and the axes it was split over. Keys in ``replicated`` (shared by
+    every example, as BERT4Rec's negatives) stay whole; a batch whose
+    leading dim does not divide the axes stays whole on every rank (the
+    reference's replicated fallback), and then no axis splits it."""
+    axes = layout.batch_axes
+    if not axes:
+        return batch, ()
+    n = axes_size(layout.mesh, axes)
+    rows = {v.shape[0] for k, v in batch.items() if k not in replicated}
+    if n == 1 or any(r % n for r in rows):
+        return batch, ()
+    idx = 0
+    for a in axes:
+        idx = idx * sh.mesh_sizes(layout.mesh)[a] + coordinate(layout.mesh,
+                                                                a)
+    out = {k: (v if k in replicated else v.chunk(n, 0)[idx])
+           for k, v in batch.items()}
+    return out, axes
+
+
+# ---------------------------------------------------------------------------
+# Whole tensors, shard norms
+# ---------------------------------------------------------------------------
+
+def full(x) -> torch.Tensor:
+    """The whole tensor of a ``DTensor`` (gathered over its split mesh
+    dims; every rank must call it), a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    out = x.to_local().detach()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if isinstance(p, Shard):
+            out = _gather_dim(out, p.dim, mesh.get_group(i))
+    return out
+
+
+def like(full_value: torch.Tensor, live) -> torch.Tensor:
+    """``full_value`` laid out as ``live``: this rank's block as a
+    ``DTensor`` of ``live``'s placements, or the tensor itself."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(live, DTensor):
+        return full_value
+    return place(full_value, live.device_mesh, live.placements)
+
+
+def replication(x) -> int:
+    """How many ranks hold each block of ``x`` (a plain tensor: every
+    rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return dist.get_world_size()
+    n = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Replicate):
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def global_norm(grads: list) -> torch.Tensor:
+    """sqrt of the sum of squares of the whole tensors, from the blocks:
+    each block's sum divided by the ranks that hold it, one all-reduce
+    over the world (the mesh's ranks)."""
+    from torch.distributed.tensor import DTensor
+    local = torch.stack([
+        torch.sum(torch.square((g.to_local() if isinstance(g, DTensor)
+                                else g).float())) / replication(g)
+        for g in grads])
+    total = torch.sum(local)
+    dist.all_reduce(total)
+    return torch.sqrt(total)

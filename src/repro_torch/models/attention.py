@@ -6,14 +6,16 @@ and P query heads each, ``wk``/``wv`` (d, G, H), ``wo`` (G, P, H, d);
 activations q (B, S, G, P, H), k/v (B, S, G, H). The reference computes
 attention in plain array code, outside any Pallas kernel, so the port's
 is plain tensor code too: the online softmax over KV chunks never forms
-the (S_q x S_kv) score matrix of a long sequence. The reference's
-sharding constraints are dropped (see ``layers.py``).
+the (S_q x S_kv) score matrix of a long sequence. ``attn_axes`` and the
+``constrain`` calls are the reference's (``distributed/sharding.py``):
+heads stay replicated, the query sequence goes over 'model'.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        norm_init)
 
@@ -37,6 +39,19 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
         p["q_norm"] = norm_init("rms", d_head)
         p["k_norm"] = norm_init("rms", d_head)
     return p
+
+
+def attn_axes(qk_norm: bool) -> dict:
+    a = {
+        "wq": ("w_fsdp", "kv_heads", "heads", "head_dim"),
+        "wk": ("w_fsdp", "kv_heads", "head_dim"),
+        "wv": ("w_fsdp", "kv_heads", "head_dim"),
+        "wo": ("kv_heads", "heads", "head_dim", "w_fsdp"),
+    }
+    if qk_norm:
+        a["q_norm"] = {"scale": ("head_dim",)}
+        a["k_norm"] = {"scale": ("head_dim",)}
+    return a
 
 
 def _project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
@@ -106,8 +121,13 @@ def attend_train(params, x: torch.Tensor, *, qk_norm: bool,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, positions, qk_norm, rope_theta)
+    # context parallelism: queries sharded over 'model', KV replicated
+    q = constrain(q, "batch", "seq_q", "kv_heads", "heads", "head_dim")
+    k = constrain(k, "batch", "seq_kv", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq_kv", "kv_heads", "head_dim")
     out = chunked_causal_attention(q, k, v, chunk=chunk, causal=causal)
-    return torch.einsum("bsgph,gphd->bsd", out, params["wo"])
+    out = torch.einsum("bsgph,gphd->bsd", out, params["wo"])
+    return constrain(out, "batch", "seq", "embed")
 
 
 def attend_decode(params, x: torch.Tensor, cache_k: torch.Tensor,

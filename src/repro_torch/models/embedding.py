@@ -1,11 +1,18 @@
-"""Embedding substrate: plain lookup and EmbeddingBag (PyTorch port of
-``repro/models/embedding.py``, its single-device branch).
+"""Embedding substrate: plain lookup, EmbeddingBag and the row-sharded
+lookup (PyTorch port of ``repro/models/embedding.py``).
 
 Bags are a gather and a segment reduction, as the reference builds them
 from ``jnp.take`` and ``segment_sum``: ``index_add_`` for the sums, a
-``scatter_reduce`` for the maxima. The reference's row-sharded lookup (a
-``shard_map`` that masks the ids a shard owns and ``psum``s the rows)
-comes with ``distributed/sharding.py``.
+``scatter_reduce`` for the maxima.
+
+Distributed lookup: under sharding rules whose 'table_rows' axis splits a
+table (a ``DTensor`` of ``distributed/parallelize.py``), each rank masks
+the ids its rows hold, gathers them from its block, and an all-reduce
+over the table axis assembles the rows, so the table is never gathered
+(the reference's ``shard_map`` with ``psum``). The ids are this rank's
+(the batch is split over the data axes before the model sees it, and a
+batch that does not divide them stays whole on every rank, the
+reference's replicated fallback).
 
 Ids stay int64: a full DLRM table holds 13.3G elements, so a row's flat
 element offset does not fit 32 bits (PyTorch's gather indexes in 64 bits
@@ -23,10 +30,40 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import parallelize as par
+from repro_torch.distributed.sharding import current_rules, entry_axes
+
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """ids (...,) -> (..., D)."""
-    return table[ids.to(device=table.device, dtype=torch.int64)]
+    """ids (...,) -> (..., D); row-sharded when the rules split ``table``'s
+    rows over their 'table_rows' axis (mask, local gather, all-reduce),
+    else a plain gather (a sharded table split otherwise is gathered
+    first)."""
+    ids = ids.to(device=table.device, dtype=torch.int64)
+    rules = current_rules()
+    axes = entry_axes(rules.table.get("table_rows")) if rules else ()
+    if len(axes) == 1 and _rows_split_over(table, axes[0]):
+        (axis,) = axes
+        mesh = table.device_mesh
+        local = par.unshard(table, keep=(axis,))
+        r_local = local.shape[0]
+        local_ids = ids - par.coordinate(mesh, axis) * r_local
+        valid = (local_ids >= 0) & (local_ids < r_local)
+        emb = local[torch.clamp(local_ids, 0, r_local - 1)]
+        emb = torch.where(valid[..., None], emb, 0)
+        return par.reduce_from(emb, par.group(mesh, axis))
+    return par.unshard(table)[ids]
+
+
+def _rows_split_over(table, axis: str) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(table, DTensor):
+        return False
+    names = table.device_mesh.mesh_dim_names
+    if axis not in names:
+        return False
+    p = table.placements[names.index(axis)]
+    return isinstance(p, Shard) and p.dim == 0
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

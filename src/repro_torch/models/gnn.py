@@ -19,7 +19,10 @@ The model is a :class:`~repro_torch.models.layers.TreeModel` with the
 reference's names, one module a processor layer where the reference
 stacks the layers (``convert.gnn_params_from_arrays`` carries a JAX tree
 across). ``unroll`` is the reference's scan unroll and has no meaning
-here; the sharding tables come with ``distributed/sharding.py``.
+here. ``param_axes`` and the ``constrain`` calls are the reference's; on
+a sharded model the weights are gathered at use and every rank runs the
+whole graph (the port does not partition a graph's message passing:
+``gnn_rules``' node and edge axes name activations only).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.parallelize import unshard
+from repro_torch.distributed.sharding import constrain, map_axes
 from repro_torch.models.embedding import segment_sum
 from repro_torch.models.layers import TreeModel, apply_norm, norm_init
 from repro_torch.models.transformer import DTYPES
@@ -64,10 +69,36 @@ def _mlp_init(gen: torch.Generator, dims: list[int], dtype) -> dict:
 def _mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     n = len(p)
     for i in range(n):
-        x = x @ p[f"l{i}"]["w"] + p[f"l{i}"]["b"]
+        x = x @ unshard(p[f"l{i}"]["w"]) + unshard(p[f"l{i}"]["b"])
         if i < n - 1:
             x = torch.relu(x)
     return x
+
+
+def _mlp_axes(dims: list[int]) -> dict:
+    return {f"l{i}": {"w": ("w_fsdp", "w_out"), "b": ("w_out",)}
+            for i in range(len(dims) - 1)}
+
+
+def param_axes(cfg: GNNConfig) -> dict:
+    d = cfg.d_hidden
+    hidden = [d] * cfg.mlp_layers
+
+    def stack(ax):
+        return map_axes(lambda t: ("layers",) + t, ax)
+
+    layer_ax = {
+        "edge_mlp": stack(_mlp_axes([3 * d] + hidden + [d])),
+        "edge_ln": stack({"scale": ("feat",), "bias": ("feat",)}),
+        "node_mlp": stack(_mlp_axes([2 * d] + hidden + [d])),
+        "node_ln": stack({"scale": ("feat",), "bias": ("feat",)}),
+    }
+    return {
+        "node_enc": _mlp_axes([cfg.node_in] + hidden + [d]),
+        "edge_enc": _mlp_axes([cfg.edge_in] + hidden + [d]),
+        "layers": layer_ax,
+        "decoder": _mlp_axes([d] + hidden + [cfg.node_out]),
+    }
 
 
 def init_params(gen: torch.Generator, cfg: GNNConfig,
@@ -98,8 +129,9 @@ def forward(model: TreeModel, graph: dict) -> torch.Tensor:
     cfg, dev = model.cfg, model.device
     node_feat = graph["node_feat"].to(dev)
     n_nodes = node_feat.shape[0]
-    h = _mlp_apply(model["node_enc"], node_feat)
-    e = _mlp_apply(model["edge_enc"], graph["edge_feat"].to(dev))
+    h = constrain(_mlp_apply(model["node_enc"], node_feat), "nodes", "feat")
+    e = constrain(_mlp_apply(model["edge_enc"], graph["edge_feat"].to(dev)),
+                  "edges", "feat")
     snd = graph["senders"].to(device=dev, dtype=torch.int64)
     rcv = graph["receivers"].to(device=dev, dtype=torch.int64)
     emask = graph["edge_mask"].to(dev)[:, None].to(h.dtype)
@@ -107,14 +139,14 @@ def forward(model: TreeModel, graph: dict) -> torch.Tensor:
         msg_in = torch.cat([e, h[snd], h[rcv]], dim=-1)
         e_new = _mlp_apply(lp["edge_mlp"], msg_in)
         e_new = apply_norm(lp["edge_ln"], e_new, "ln")
-        e = e + e_new * emask
+        e = constrain(e + e_new * emask, "edges", "feat")
         agg = segment_sum(e * emask, rcv, n_nodes)
         if cfg.aggregator == "mean":
             deg = segment_sum(emask, rcv, n_nodes)
             agg = agg / torch.clamp(deg, min=1.0)
         h_new = _mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
         h_new = apply_norm(lp["node_ln"], h_new, "ln")
-        h = h + h_new
+        h = constrain(h + h_new, "nodes", "feat")
     out = _mlp_apply(model["decoder"], h)
     return out * graph["node_mask"].to(dev)[:, None].to(out.dtype)
 

@@ -11,10 +11,11 @@ Three behaviours of the reference that PyTorch's defaults do not share:
 ``jax.nn.gelu`` is the tanh approximation, the norms take eps 1e-6, and
 RoPE rotates the two halves of the head dim (not interleaved pairs).
 
-The reference's ``constrain`` calls (a sharding constraint under ambient
-logical-axis rules, a no-op without a mesh) and its ``*_axes`` tables of
-logical axis names are left out: nothing in the port shards a model
-yet; they come with ``distributed/sharding.py``.
+``mlp_axes`` and the ``constrain`` calls are the reference's
+(``distributed/sharding.py``; the identity without a mesh). Under a
+batch split (``distributed/parallelize.py``) the loss's mean divides by
+the whole batch's count, summed over the ranks that split it, so the
+ranks' losses add up to the reference's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.parallelize import batch_share, batch_sum, \
+    unshard
+from repro_torch.distributed.sharding import constrain
 
 NORM_EPS = 1e-6
 
@@ -120,13 +125,14 @@ def apply_norm(params, x: torch.Tensor, norm: str,
     x = x.float()
     if norm == "rms":
         x = x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + eps)
-        x = x * params["scale"].float()
+        x = x * unshard(params["scale"]).float()
     else:
         mu = torch.mean(x, -1, keepdim=True)
         var = torch.mean((x - mu) ** 2, -1, keepdim=True)
         x = (x - mu) * torch.rsqrt(var + eps)
         if norm == "ln":
-            x = x * params["scale"].float() + params["bias"].float()
+            x = (x * unshard(params["scale"]).float()
+                 + unshard(params["bias"]).float())
     return x.to(dt)
 
 
@@ -143,15 +149,22 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, act: str,
     return p
 
 
-def apply_mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    up = x @ params["w_up"]
+def mlp_axes(act: str) -> dict:
+    a = {"w_up": ("w_fsdp", "w_mlp"), "w_down": ("w_mlp", "w_fsdp")}
     if act == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * up
+        a["w_gate"] = ("w_fsdp", "w_mlp")
+    return a
+
+
+def apply_mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    up = constrain(x @ unshard(params["w_up"]), "batch", "seq", "mlp")
+    if act == "swiglu":
+        h = F.silu(x @ unshard(params["w_gate"])) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown act {act!r}")
-    return h @ params["w_down"]
+    return constrain(h @ unshard(params["w_down"]), "batch", "seq", "embed")
 
 
 def mlp_stack_init(gen: torch.Generator, dims: list[int],
@@ -170,7 +183,7 @@ def apply_mlp_stack(params, x: torch.Tensor, act=F.relu,
     n = len(params)
     for i in range(n):
         p = params[f"layer{i}"]
-        x = x @ p["w"] + p["b"]
+        x = x @ unshard(p["w"]) + unshard(p["b"])
         if i < n - 1 or final_act:
             x = act(x)
     return x
@@ -208,5 +221,6 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                    dim=-1)
     nll = lse - ll
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        return torch.sum(nll * mask) / torch.clamp(batch_sum(torch.sum(mask)),
+                                                   min=1.0)
+    return batch_share(torch.mean(nll))

@@ -35,10 +35,20 @@ Where the port must take care to place the same tokens:
     that same accumulating ``index_put_``. The stable sort and the
     running maximum of ``rank_within_run`` are exact on either device.
 
-``moe_axes``, ``_a2a_path_available``, ``_moe_weight_dims_divide`` and
-``_apply_moe_a2a`` (the expert-parallel all-to-all the reference takes
-under a mesh with a 'model' axis) and the ``constrain`` calls come with
-``distributed/sharding.py``.
+Sharded (``distributed/parallelize.py``): ``moe_axes`` puts the experts
+over 'model' and their input dim over the data axes. Where the reference
+takes its expert-parallel all-to-all (``_a2a_path_available`` and
+``_moe_weight_dims_divide``), so does the port (``_apply_moe_a2a``):
+each 'model' rank routes its slice of the sequence, capacity-sorts it for
+every expert (``dispatch``, one group, capacity per source shard), sends
+each expert's slots to its owner (``all_to_all_single`` over 'model'),
+runs its local experts on what it receives (their weights cast to the
+compute dtype, then gathered over the data axes), sends the outputs back
+and combines them; the sequence is then gathered whole again. Otherwise
+the experts are gathered whole and the single-device path runs. The aux
+loss is the whole batch's (its frequencies and mean probabilities
+averaged over the ranks that split the batch), each rank holding its
+share.
 """
 
 from __future__ import annotations
@@ -49,8 +59,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.search import topk_stable
+from repro_torch.distributed import parallelize as par
+from repro_torch.distributed.sharding import constrain, current_rules, \
+    mesh_sizes
 from repro_torch.models.layers import apply_mlp, dense_init, mlp_init
 from repro_torch.utils import rank_within_run
+
+# the stacked expert weights: the transformer's use-site cast leaves them
+# to apply_moe, which gathers them as its path needs
+EXPERT_KEYS = ("w_up", "w_gate", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,16 +102,43 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, act: str,
     return p
 
 
+def moe_axes(cfg: MoEConfig, act: str) -> dict:
+    a = {
+        # the router is small: replicated
+        "router": (None, None),
+        "w_up": ("experts", "w_fsdp", "w_mlp"),
+        "w_down": ("experts", "w_mlp", "w_fsdp"),
+    }
+    if act == "swiglu":
+        a["w_gate"] = ("experts", "w_fsdp", "w_mlp")
+    if cfg.n_shared:
+        a["shared"] = {"w_up": ("w_fsdp", "w_mlp"),
+                       "w_down": ("w_mlp", "w_fsdp")}
+        if act == "swiglu":
+            a["shared"]["w_gate"] = ("w_fsdp", "w_mlp")
+    return a
+
+
+def _experts(params, dtype: torch.dtype, keep=()) -> dict:
+    """The expert weights cast to ``dtype`` (float32 masters), then
+    gathered over every axis they are split on but ``keep``."""
+    return {k: par.unshard(params[k], dtype, keep)
+            for k in EXPERT_KEYS if k in params}
+
+
 def _expert_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """x: (B, E, C, D) -> (B, E, C, D), one batched product pair over the
     expert axis."""
+    x = constrain(x, "batch", "experts", "expert_cap", "embed")
     up = torch.einsum("becd,edf->becf", x, params["w_up"])
+    up = constrain(up, "batch", "experts", "expert_cap", "mlp")
     if act == "swiglu":
         gate = torch.einsum("becd,edf->becf", x, params["w_gate"])
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return torch.einsum("becf,efd->becd", h, params["w_down"])
+    out = torch.einsum("becf,efd->becd", h, params["w_down"])
+    return constrain(out, "batch", "experts", "expert_cap", "embed")
 
 
 def route(params, x: torch.Tensor, cfg: MoEConfig
@@ -103,7 +147,7 @@ def route(params, x: torch.Tensor, cfg: MoEConfig
     to sum 1, idx (B, S, K) expert ids). The logits are float32 products of
     the activations and the router as the layer holds it (the reference
     casts the router to the compute dtype with the rest of the layer)."""
-    logits = x.float() @ params["router"].float()
+    logits = x.float() @ par.unshard(params["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = topk_stable(probs, cfg.top_k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -157,19 +201,109 @@ def combine(expert_out: torch.Tensor, info, S: int) -> torch.Tensor:
                          picked * w).reshape(B, S, D)
 
 
+def _data_model_sizes(mesh) -> tuple[int, int]:
+    sizes = mesh_sizes(mesh)
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= sizes.get(a, 1)
+    return dp, sizes.get("model", 1)
+
+
+def _a2a_path_available(cfg: MoEConfig, B: int, S: int) -> bool:
+    """True when the explicit expert-parallel all-to-all path applies:
+    a mesh with a 'model' axis is installed, experts divide across it,
+    and the activation grid (B the whole batch) divides the mesh."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return False
+    if "model" not in rules.mesh.mesh_dim_names:
+        return False
+    dp, mp = _data_model_sizes(rules.mesh)
+    return (cfg.n_experts % mp == 0 and B % dp == 0 and S % mp == 0
+            and mp > 1)
+
+
+def _moe_weight_dims_divide(params, mesh) -> bool:
+    dp, _ = _data_model_sizes(mesh)
+    return (params["w_up"].shape[1] % dp == 0
+            and params["w_down"].shape[2] % dp == 0)
+
+
+def _apply_moe_a2a(params, x: torch.Tensor, gates: torch.Tensor,
+                   idx: torch.Tensor, cfg: MoEConfig,
+                   act: str) -> torch.Tensor:
+    """Expert parallelism over 'model' with two all-to-alls (the
+    reference's ``shard_map`` body, on this rank's rows).
+
+    x (B_l, S, D) is this rank's rows, whole on every 'model' rank; each
+    'model' rank takes its slice of the sequence (the gradient of the
+    slice is gathered back), capacity-sorts its T tokens for all E
+    experts with capacity ``max(1, int(T * K / E * cf))`` per source
+    shard, exchanges the (E, C, D) slots destination-major, runs its
+    E / mp experts on the (mp * C) slots each received, exchanges the
+    outputs back, combines them, and gathers the sequence whole."""
+    mesh = current_rules().mesh
+    _, mp = _data_model_sizes(mesh)
+    g = par.group(mesh, "model")
+    at = par.coordinate(mesh, "model")
+    E, K = cfg.n_experts, cfg.top_k
+    e_local = E // mp
+    Bl, S, D = x.shape
+    xl = par.split(x, 1, g)
+    gl = par.split(gates, 1, g)
+    il = idx.chunk(mp, 1)[at]
+    Sl = S // mp
+    T = Bl * Sl
+    C = max(1, int(T * K / E * cfg.capacity_factor))
+    send, info = dispatch(xl.reshape(1, T, D), gl.reshape(1, T, K),
+                          il.reshape(1, T, K), E, C)
+    # (E, C, D) is destination-major: expert e lives on rank e // e_local
+    recv = par.all_to_all(send.reshape(E * C, D), g)
+    # grouped by source rank: (src, e_local, C, D) -> (e_local, src * C, D)
+    recv = recv.reshape(mp, e_local, C, D).transpose(0, 1).reshape(
+        e_local, mp * C, D)
+    # cast to the compute dtype BEFORE the gather over the data axes
+    w = _experts(params, x.dtype, keep=("experts",))
+    up = torch.einsum("ecd,edf->ecf", recv, w["w_up"])
+    if act == "swiglu":
+        h = F.silu(torch.einsum("ecd,edf->ecf", recv, w["w_gate"])) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    eo = torch.einsum("ecf,efd->ecd", h, w["w_down"])
+    # back: (e_local, src, C, D) -> (src, e_local * C, D)
+    eo = eo.reshape(e_local, mp, C, D).transpose(0, 1).reshape(
+        mp * e_local * C, D)
+    back = par.all_to_all(eo, g).reshape(1, E, C, D)
+    out = combine(back, info, T).reshape(Bl, Sl, D)
+    return par.gather(out, 1, g)
+
+
 def apply_moe(params, x: torch.Tensor, cfg: MoEConfig,
               act: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss). Groups = sequences."""
+    """x: (B, S, D) -> (out, aux_loss). Groups = sequences. Sharded, x is
+    this rank's rows and the aux loss this rank's share."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = max(1, int(S * K / E * cfg.capacity_factor))
+    layout = par.current_layout()
+    n_split = (par.axes_size(layout.mesh, layout.batch_axes)
+               if layout is not None else 1)
+    use_a2a = _a2a_path_available(cfg, B * n_split, S)
+    if use_a2a:
+        use_a2a = _moe_weight_dims_divide(params, current_rules().mesh)
+    if not use_a2a:
+        x = constrain(x, "batch", "seq_kv", "embed")
     probs, gates, idx = route(params, x, cfg)
-    expert_in, info = dispatch(x, gates.to(x.dtype), idx, E, C)
-    out = combine(_expert_ffn(params, expert_in, act), info, S)
+    if use_a2a:
+        out = _apply_moe_a2a(params, x, gates.to(x.dtype), idx, cfg, act)
+    else:
+        expert_in, info = dispatch(x, gates.to(x.dtype), idx, E, C)
+        out = combine(_expert_ffn(_experts(params, x.dtype), expert_in,
+                                  act), info, S)
     if cfg.n_shared:
         out = out + apply_mlp(params["shared"], x, act)
-    # Switch load-balance loss: E * sum_e f_e * p_e
-    f = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
-    pbar = probs.mean(dim=(0, 1))
-    aux = cfg.aux_loss_weight * E * torch.sum(f * pbar)
-    return out, aux
+    # Switch load-balance loss: E * sum_e f_e * p_e, over the whole batch
+    f = par.batch_mean(F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1)))
+    pbar = par.batch_mean(probs.mean(dim=(0, 1)))
+    aux = par.batch_share(cfg.aux_loss_weight * E * torch.sum(f * pbar))
+    return constrain(out, "batch", "seq", "embed"), aux

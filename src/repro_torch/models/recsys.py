@@ -19,9 +19,12 @@ block as one batched forward pass.
 
 Initialisers draw from an explicit ``torch.Generator`` on its own device
 (their numbers are not ``jax.random``'s; the scales are the same), so a
-CUDA generator draws a full-size table on the card. The reference's
-``constrain`` calls and ``*_axes`` tables come with
-``distributed/sharding.py``.
+CUDA generator draws a full-size table on the card. The ``*_axes``
+tables (``RECSYS_AXES``) and the ``constrain`` calls are the
+reference's. On a sharded model (``distributed/parallelize.py``) the
+tables stay split over 'table_rows' (``embedding_lookup``'s row-sharded
+path), every other weight is gathered at use, and the losses are each
+rank's share of the whole batch's mean.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.parallelize import batch_share, batch_sum, \
+    unshard
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.embedding import embedding_init, embedding_lookup
 from repro_torch.models.layers import (TreeModel, apply_mlp_stack,
                                        apply_norm, mlp_stack_init, norm_init)
@@ -53,8 +59,13 @@ def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy of logits, the reference's stable form."""
     z = logits.reshape(-1).float()
     y = labels.reshape(-1).to(device=z.device, dtype=torch.float32)
-    return torch.mean(torch.clamp(z, min=0) - z * y
-                      + torch.log1p(torch.exp(-torch.abs(z))))
+    return batch_share(torch.mean(torch.clamp(z, min=0) - z * y
+                                  + torch.log1p(torch.exp(-torch.abs(z)))))
+
+
+def _mlp_stack_axes(n: int) -> dict:
+    return {f"layer{i}": {"w": ("w_fsdp", "w_out"), "b": ("w_out",)}
+            for i in range(n)}
 
 
 # ===========================================================================
@@ -109,12 +120,19 @@ def dlrm_forward(model: TreeModel, batch: dict) -> torch.Tensor:
                            device=model.device) * cfg.vocab_per_table
     ids = _ids(batch["sparse"], model) + offsets[None, :]
     emb = embedding_lookup(model["tables"], ids)           # (B, 26, D)
+    emb = constrain(emb, "batch", "fields", "embed")
     bot = apply_mlp_stack(model["bot"], batch["dense"].to(model.device),
                           final_act=True)
     x = torch.cat([bot[:, None, :], emb], dim=1)           # (B, 27, D)
     inter = _dot_interaction(x)                            # (B, 351)
     top_in = torch.cat([bot, inter], dim=-1)
-    return apply_mlp_stack(model["top"], top_in)[:, 0]
+    return constrain(apply_mlp_stack(model["top"], top_in)[:, 0], "batch")
+
+
+def dlrm_axes(cfg: DLRMConfig) -> dict:
+    return {"tables": ("table_rows", "embed"),
+            "bot": _mlp_stack_axes(len(cfg.bot_mlp)),
+            "top": _mlp_stack_axes(len(cfg.top_mlp))}
 
 
 def dlrm_loss(model: TreeModel, batch: dict) -> torch.Tensor:
@@ -176,6 +194,7 @@ def din_forward(model: TreeModel, batch: dict) -> torch.Tensor:
     target_item/target_cate (B,) -> logits (B,)."""
     h = _din_feat(model, batch["hist_items"], batch["hist_cates"])
     t = _din_feat(model, batch["target_item"], batch["target_cate"])
+    h = constrain(h, "batch", "seq", "embed")
     tb = t[:, None, :].expand_as(h)
     att_in = torch.cat([h, tb, h - tb, h * tb], dim=-1)
     w = apply_mlp_stack(model["attn"], att_in)[..., 0]     # (B, L)
@@ -184,6 +203,13 @@ def din_forward(model: TreeModel, batch: dict) -> torch.Tensor:
     user = torch.einsum("bl,blf->bf", w, h)
     x = torch.cat([user, t, user * t], dim=-1)
     return apply_mlp_stack(model["mlp"], x)[:, 0]
+
+
+def din_axes(cfg: DINConfig) -> dict:
+    return {"item_emb": ("table_rows", "embed"),
+            "cate_emb": ("table_rows", "embed"),
+            "attn": _mlp_stack_axes(len(cfg.attn_mlp) + 1),
+            "mlp": _mlp_stack_axes(len(cfg.mlp) + 1)}
 
 
 def din_loss(model: TreeModel, batch: dict) -> torch.Tensor:
@@ -235,11 +261,17 @@ def deepfm_forward(model: TreeModel, batch: dict) -> torch.Tensor:
                            device=model.device) * cfg.vocab_per_field
     ids = _ids(batch["fields"], model) + offsets[None, :]
     e = embedding_lookup(model["emb"], ids)                # (B, F, D)
+    e = constrain(e, "batch", "fields", "embed")
     first = embedding_lookup(model["w1"], ids)[..., 0].sum(-1)
     s = e.sum(dim=1)
     fm = 0.5 * (s * s - (e * e).sum(dim=1)).sum(-1)
     deep = apply_mlp_stack(model["mlp"], e.reshape(e.shape[0], -1))[:, 0]
-    return model["bias"] + first + fm + deep
+    return unshard(model["bias"]) + first + fm + deep
+
+
+def deepfm_axes(cfg: DeepFMConfig) -> dict:
+    return {"emb": ("table_rows", "embed"), "w1": ("table_rows", "embed"),
+            "mlp": _mlp_stack_axes(len(cfg.mlp) + 1), "bias": ()}
 
 
 def deepfm_loss(model: TreeModel, batch: dict) -> torch.Tensor:
@@ -302,18 +334,21 @@ def _bert4rec_block(bp, x: torch.Tensor, mask: torch.Tensor,
                     n_heads: int) -> torch.Tensor:
     B, L, d = x.shape
     dh = d // n_heads
+    w = {k: unshard(bp[k]) for k in ("wq", "wk", "wv", "wo")}
+    ff1 = {k: unshard(v) for k, v in bp["ff1"].items()}
+    ff2 = {k: unshard(v) for k, v in bp["ff2"].items()}
     y = apply_norm(bp["ln1"], x, "ln")
-    q = (y @ bp["wq"]).reshape(B, L, n_heads, dh)
-    k = (y @ bp["wk"]).reshape(B, L, n_heads, dh)
-    v = (y @ bp["wv"]).reshape(B, L, n_heads, dh)
+    q = (y @ w["wq"]).reshape(B, L, n_heads, dh)
+    k = (y @ w["wk"]).reshape(B, L, n_heads, dh)
+    v = (y @ w["wv"]).reshape(B, L, n_heads, dh)
     s = torch.einsum("blhd,bmhd->bhlm", q, k) / math.sqrt(dh)
     s = torch.where(mask[:, None, None, :], s, NEG_MASK)
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bhlm,bmhd->blhd", a, v).reshape(B, L, d)
-    x = x + o @ bp["wo"]
+    x = x + o @ w["wo"]
     y = apply_norm(bp["ln2"], x, "ln")
-    y = F.gelu(y @ bp["ff1"]["w"] + bp["ff1"]["b"], approximate="tanh")
-    return x + (y @ bp["ff2"]["w"] + bp["ff2"]["b"])
+    y = F.gelu(y @ ff1["w"] + ff1["b"], approximate="tanh")
+    return x + (y @ ff2["w"] + ff2["b"])
 
 
 def bert4rec_encode(model: TreeModel, batch: dict) -> torch.Tensor:
@@ -322,7 +357,8 @@ def bert4rec_encode(model: TreeModel, batch: dict) -> torch.Tensor:
     cfg = model.cfg
     mask = batch["mask"].to(model.device)
     x = embedding_lookup(model["item_emb"], _ids(batch["items"], model)) \
-        + model["pos_emb"]
+        + unshard(model["pos_emb"])
+    x = constrain(x, "batch", "seq", "embed")
     for bp in model["blocks"]:
         x = _bert4rec_block(bp, x, mask, cfg.n_heads)
     return apply_norm(model["final_ln"], x, "ln")
@@ -342,7 +378,24 @@ def bert4rec_loss(model: TreeModel, batch: dict) -> torch.Tensor:
     logits = torch.cat([pos_logit[..., None], neg_logit], dim=-1)
     nll = torch.logsumexp(logits, dim=-1) - pos_logit
     w = batch["label_mask"].to(device=model.device, dtype=torch.float32)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(nll * w) / torch.clamp(batch_sum(torch.sum(w)),
+                                            min=1.0)
+
+
+def bert4rec_axes(cfg: Bert4RecConfig) -> dict:
+    def s(t):
+        return ("layers",) + t
+    block_ax = {
+        "wq": s(("embed", "w_out")), "wk": s(("embed", "w_out")),
+        "wv": s(("embed", "w_out")), "wo": s(("embed", "w_out")),
+        "ln1": {"scale": s(("embed",)), "bias": s(("embed",))},
+        "ln2": {"scale": s(("embed",)), "bias": s(("embed",))},
+        "ff1": {"w": s(("embed", "w_out")), "b": s(("w_out",))},
+        "ff2": {"w": s(("w_out", "embed")), "b": s(("embed",))},
+    }
+    return {"item_emb": ("table_rows", "embed"), "pos_emb": ("seq", "embed"),
+            "blocks": block_ax, "final_ln": {"scale": ("embed",),
+                                             "bias": ("embed",)}}
 
 
 def bert4rec_retrieval(model: TreeModel, batch: dict) -> torch.Tensor:
@@ -351,6 +404,7 @@ def bert4rec_retrieval(model: TreeModel, batch: dict) -> torch.Tensor:
     hidden = bert4rec_encode(model, batch)[:, -1, :]         # (1, D)
     cand = embedding_lookup(model["item_emb"], _ids(batch["cand_ids"],
                                                     model))
+    cand = constrain(cand, "candidates", "embed")
     return (cand @ hidden[0]).float()
 
 
@@ -362,3 +416,7 @@ RECSYS = {
     "bert4rec": (bert4rec_init, bert4rec_encode, bert4rec_loss,
                  bert4rec_retrieval),
 }
+
+# arch id -> its parameters' logical axes (the reference's layout)
+RECSYS_AXES = {"dlrm-mlperf": dlrm_axes, "din": din_axes,
+               "deepfm": deepfm_axes, "bert4rec": bert4rec_axes}

@@ -14,10 +14,18 @@ masters. ``cfg.remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), the reference's
 ``nothing_saveable`` policy: only the layer inputs are kept. The
 products (attention, MLP, the LM head) are plain matrix products, as the
-reference leaves them to XLA. ``unroll`` and the sharding tables
-(``layer_axes``, ``param_axes``, ``cache_axes``) have no meaning without
-a scanned layer axis and a mesh; the latter come with
-``distributed/sharding.py``.
+reference leaves them to XLA. ``unroll`` has no meaning without a
+scanned layer axis.
+
+The sharding tables (``layer_axes``, ``param_axes``, ``cache_axes``) and
+the ``constrain`` calls are the reference's; ``param_axes`` names the
+reference's stacked layout (a leading "layers" axis), which
+``distributed.parallelize.shard_module`` places the per-layer modules by.
+On a sharded model the use-site cast is where FSDP gathers: each float32
+master block is cast to the compute dtype, then gathered
+(``parallelize.unshard``), as the reference's ``_cast_params`` casts and
+then constrains. The experts stay split for the MoE's expert-parallel
+path (``models/moe.py`` gathers them itself).
 """
 
 from __future__ import annotations
@@ -31,11 +39,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.parallelize import in_context, unshard
+from repro_torch.distributed.sharding import constrain, map_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ParamTree, apply_mlp, apply_norm,
-                                       cross_entropy_loss, mlp_init,
-                                       norm_init, truncated_normal_init)
+                                       cross_entropy_loss, mlp_axes,
+                                       mlp_init, norm_init,
+                                       truncated_normal_init)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -111,12 +122,50 @@ def _check_remat_policy(cfg: LMConfig) -> None:
 # the module tree
 # ---------------------------------------------------------------------------
 
-def _cast(tree, dt: torch.dtype):
+def _cast(tree, dt: torch.dtype, split=()):
     """The reference's ``_cast_params``: float32 masters to the compute
-    dtype at the use site (differentiable); other dtypes as they are."""
+    dtype at the use site (differentiable), other dtypes as they are; a
+    sharded master is cast and then gathered whole, except the keys in
+    ``split``, which stay as they are (their user gathers them)."""
     if isinstance(tree, (ParamTree, dict)):
-        return {k: _cast(v, dt) for k, v in tree.items()}
-    return tree.to(dt) if tree.dtype == torch.float32 else tree
+        return {k: (v if k in split else _cast(v, dt))
+                for k, v in tree.items()}
+    return unshard(tree, dt)
+
+
+def layer_axes(cfg: LMConfig) -> dict:
+    """Per-layer logical axes without the scanned 'layers' dim."""
+    norm_ax = _norm_axes(cfg)
+    ax: dict = {"ln1": norm_ax, "ln2": norm_ax,
+                "attn": attn.attn_axes(cfg.qk_norm)}
+    if cfg.moe:
+        ax["moe"] = moe_lib.moe_axes(cfg.moe, cfg.act)
+    else:
+        ax["mlp"] = mlp_axes(cfg.act)
+    return ax
+
+
+def _norm_axes(cfg: LMConfig) -> dict:
+    return {} if cfg.norm == "nonparam_ln" else (
+        {"scale": ("embed",)} if cfg.norm == "rms"
+        else {"scale": ("embed",), "bias": ("embed",)})
+
+
+def param_axes(cfg: LMConfig) -> dict:
+    """Tree of logical-axis tuples mirroring the reference's parameter
+    tree (layers stacked on a leading 'layers' axis)."""
+    p = {"embed": ("w_vocab", "w_embed"),
+         "layers": map_axes(lambda t: ("layers",) + t, layer_axes(cfg)),
+         "final_norm": _norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("w_embed", "w_vocab")
+    return p
+
+
+def cache_axes() -> dict:
+    return {"k": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+            "v": ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+            "len": ()}
 
 
 class DecoderLayer(nn.Module):
@@ -133,7 +182,8 @@ class DecoderLayer(nn.Module):
 
     def cast(self) -> dict:
         dt = self.cfg.compute_dtype
-        return {k: _cast(getattr(self, k), dt)
+        return {k: _cast(getattr(self, k), dt,
+                         moe_lib.EXPERT_KEYS if k == "moe" else ())
                 for k in ("ln1", "ln2", "attn", self.ffn_name)}
 
     def ffn(self, lp: dict, h: torch.Tensor
@@ -152,7 +202,7 @@ class DecoderLayer(nn.Module):
                                   rope_theta=cfg.rope_theta,
                                   chunk=cfg.attn_chunk)
         y, aux = self.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))
-        return x + y, aux
+        return constrain(x + y, "batch", "seq", "embed"), aux
 
 
 class TransformerLM(nn.Module):
@@ -178,14 +228,17 @@ class TransformerLM(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.to(self.cfg.compute_dtype)[tokens]
+        dt = self.cfg.compute_dtype
+        x = unshard(self.embed, dt).to(dt)[tokens]
+        return constrain(x, "batch", "seq", "embed")
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the LM head: (..., D) -> (..., V) logits."""
         dt = self.cfg.compute_dtype
         x = apply_norm(_cast(self.final_norm, dt), x, self.cfg.norm)
-        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ w.to(dt)
+        w = (unshard(self.embed, dt).T if self.cfg.tie_embeddings
+             else unshard(self.lm_head, dt))
+        return constrain(x @ w.to(dt), "batch", "seq", "vocab")
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
@@ -244,7 +297,7 @@ def forward(model: TransformerLM, tokens: torch.Tensor
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         if model.cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(layer, x, use_reentrant=False)
+            x, a = checkpoint(in_context(layer), x, use_reentrant=False)
         else:
             x, a = layer(x)
         aux = aux + a
@@ -275,9 +328,15 @@ def prefill(model: TransformerLM, tokens: torch.Tensor,
         h = apply_norm(lp["ln1"], x, cfg.norm)
         q, k, v = attn._project_qkv(lp["attn"], h, positions, cfg.qk_norm,
                                     cfg.rope_theta)
+        q = constrain(q, "batch", "seq_q", "kv_heads", "heads", "head_dim")
+        k = constrain(k, "batch", "cache_seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "cache_seq", "kv_heads", "head_dim")
         o = attn.chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
-        x = x + torch.einsum("bsgph,gphd->bsd", o, lp["attn"]["wo"])
-        x = x + layer.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))[0]
+        o = torch.einsum("bsgph,gphd->bsd", o, lp["attn"]["wo"])
+        x = x + constrain(o, "batch", "seq", "embed")
+        x = constrain(x + layer.ffn(lp, apply_norm(lp["ln2"], x,
+                                                   cfg.norm))[0],
+                      "batch", "seq", "embed")
         ks.append(k.to(cache_dtype))
         vs.append(v.to(cache_dtype))
     logits = model.head(x[:, -1:, :])

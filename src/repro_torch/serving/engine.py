@@ -548,6 +548,17 @@ def index_shard_specs(index: ClusterIndex,
     return {f: (() if f in replicated else c) for f in INDEX_FIELDS}
 
 
+def index_axes(index: ClusterIndex) -> dict[str, tuple]:
+    """Field -> logical axes for ``sharding.retrieval_rules``: the cluster
+    axis leads every field it shards ("clusters"), the rest name no mesh
+    axis; the superblock tables and the scale are replicated. Under the
+    rules these give :func:`index_shard_specs`' placements."""
+    replicated = ("scale", "super_members", "super_max_stacked")
+    return {f: ((None,) * getattr(index, f).dim() if f in replicated
+                else ("clusters",) + (None,) * (getattr(index, f).dim() - 1))
+            for f in INDEX_FIELDS}
+
+
 def _coords(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 

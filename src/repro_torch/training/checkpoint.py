@@ -9,7 +9,12 @@ Guarantees, as the reference's:
   * rotation — the ``max_to_keep`` newest checkpoints are retained;
   * restore onto the live state — arrays are stored host-global
     (``arrays.npz`` with ``a0..aN`` and ``manifest.json``); ``cast_like``
-    puts them on the live tensors' devices and dtypes.
+    puts them on the live tensors' devices and dtypes, and reshards them
+    onto the live placements of a sharded tree.
+
+A sharded tree (``DTensor`` leaves) is saved by every rank of its mesh:
+each gathers the whole tensors, in leaf order, and rank 0 alone writes
+them (``fit`` then waits for every rank on a barrier).
 
 The on-disk format and leaf order are the reference's: a tree is saved in
 its reference layout (``convert.to_arrays``: a module as its parameter
@@ -28,8 +33,21 @@ import time
 
 import numpy as np
 
-from repro_torch.convert import host_copy, load_arrays, reference_view
+from repro_torch.convert import (LayerStack, host_copy, load_arrays,
+                                 reference_view)
 from repro_torch.training.tree import leaves, structure, unflatten
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _sharded(flat) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor)
+               for x in flat
+               for t in (x.items if isinstance(x, LayerStack) else [x]))
 
 
 def _load_flat(d: str) -> list[np.ndarray]:
@@ -64,8 +82,17 @@ class CheckpointManager:
         # copy to host synchronously (the caller goes on updating the
         # live tensors), then optionally write on a background thread
         view = reference_view(tree)
-        host = [host_copy(x) for x in leaves(view)]
+        flat = leaves(view)
         treedef = structure(view)
+        if _sharded(flat) and _rank() != 0:
+            # the gathers are collectives: take part, keep nothing
+            from repro_torch.distributed.parallelize import full
+            for x in flat:
+                for t in (x.items if isinstance(x, LayerStack) else [x]):
+                    full(t)
+            self._last_treedef = treedef
+            return
+        host = [host_copy(x) for x in flat]
 
         def write():
             tmp = os.path.join(self.dir, f"tmp.{step}.{os.getpid()}")

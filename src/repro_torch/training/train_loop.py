@@ -12,6 +12,15 @@ optimizer sees the module's parameter tree (``tree.module_tree``).
 ``fit`` is the loop: resume from the latest checkpoint, periodic async
 saves, deterministic data order keyed by step (a restart re-produces the
 same batch sequence).
+
+Sharded training (``layout``, a ``distributed.parallelize.Layout``): the
+model's parameters are ``DTensor``s (``parallelize.shard_module``), every
+rank runs the step on its rows of the batch under the layout's rules, and
+its loss is its share of the whole batch's. The step reports the whole
+batch's loss (the shares summed over the batch axes), clips by the norm
+of the whole gradients (from the blocks, one all-reduce) and updates each
+rank's blocks in place; AdamW's moments are blocks of the same
+placements. Checkpoints hold whole tensors, written by rank 0.
 """
 
 from __future__ import annotations
@@ -41,14 +50,17 @@ class TrainConfig:
 
 
 def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
-                    cfg: TrainConfig, compression_group=None):
+                    cfg: TrainConfig, compression_group=None, layout=None):
     """``loss_fn(model, batch) -> scalar``. Returns ``step(model,
     opt_state, batch, step_no, [ef_state]) -> (model, opt_state,
     metrics[, ef])``; the model's parameters are updated in place and the
     same module is returned. ``compression_group`` (a process group, e.g.
     ``torch.distributed.group.WORLD``) turns on ``compressed_mean`` when
-    ``cfg.grad_compression`` is set; ``None`` leaves it off."""
+    ``cfg.grad_compression`` is set; ``None`` leaves it off. ``layout``
+    runs the sharded step (every rank calls it with the whole batch)."""
     compress = cfg.grad_compression and compression_group is not None
+    if layout is not None:
+        return _sharded_step(loss_fn, optimizer, cfg, layout)
 
     def value_and_grad(model, params, batch):
         loss = loss_fn(model, batch)
@@ -98,14 +110,66 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     return step
 
 
+def _sharded_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
+                  cfg: TrainConfig, layout):
+    if cfg.microbatches > 1:
+        raise ValueError("the sharded step takes no microbatches")
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import parallelize as par
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    def rewrap(x, like):
+        if not isinstance(like, DTensor):
+            return x
+        return DTensor.from_local(x, like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
+
+    def step(model: nn.Module, opt_state, batch, step_no):
+        params = module_tree(model)
+        rows, axes = par.local_batch(batch, layout)
+        # a batch that does not divide the axes runs whole on every rank
+        with par.use_layout(par.Layout(layout.rules, axes)):
+            loss = loss_fn(model, rows)
+            flat = leaves(params)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, grads)]
+            loss = par.batch_sum(loss.detach())
+        gnorm = par.global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        g_local = torch._foreach_mul([local(g).float() for g in grads],
+                                     scale)
+        p_local = [local(p) for p in leaves(params)]
+        struct = structure(params)
+        st_local = tree_map(local, opt_state)
+        updates, st_new = optimizer.update(
+            unflatten(struct, [g.to(p.dtype) for g, p in
+                               zip(g_local, p_local)]),
+            st_local, unflatten(struct, p_local), step_no)
+        with torch.no_grad():
+            torch._foreach_add_(p_local, [u.to(p.dtype) for p, u in
+                                          zip(p_local, leaves(updates))])
+        opt_state = tree_map(rewrap, st_new, opt_state)
+        return model, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
 def fit(*, params: nn.Module, optimizer: opt_lib.Optimizer,
         loss_fn: Callable, data_fn: Callable[[int], Any], cfg: TrainConfig,
         ckpt_dir: str | None = None,
-        log_fn: Callable[[str], None] = print) -> tuple[nn.Module,
-                                                        list[dict]]:
+        log_fn: Callable[[str], None] = print,
+        layout=None) -> tuple[nn.Module, list[dict]]:
     """Training loop. ``data_fn(step) -> batch`` must be deterministic in
     ``step`` (fault-tolerant replay). ``params`` is the model, trained in
-    place. Returns (params, history)."""
+    place. Returns (params, history). With ``layout`` (every rank calls
+    ``fit``; ``params`` already sharded) the step is the sharded one and
+    checkpoints hold whole tensors, rank 0 writing them."""
     opt_state = optimizer.init(module_tree(params))
     start_step = 0
     mgr = None
@@ -119,7 +183,7 @@ def fit(*, params: nn.Module, optimizer: opt_lib.Optimizer,
             opt_state = mgr.cast_like(restored["opt_state"], opt_state)
             log_fn(f"[fit] resumed from step {start_step - 1}")
 
-    step_fn = make_train_step(loss_fn, optimizer, cfg)
+    step_fn = make_train_step(loss_fn, optimizer, cfg, layout=layout)
 
     history = []
     t0 = time.perf_counter()
@@ -140,4 +204,6 @@ def fit(*, params: nn.Module, optimizer: opt_lib.Optimizer,
         mgr.save(cfg.steps - 1, {"step": cfg.steps - 1, "params": params,
                                  "opt_state": opt_state})
         mgr.wait()
+        if layout is not None:
+            torch.distributed.barrier()
     return params, history

@@ -124,6 +124,18 @@ def test_entry_points_default_to_the_card(no_card):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the training launcher, on one device and sharded over ranks, exits
+    # with the error before it builds or spawns anything
+    from repro_torch.launch import train as train_cli
+    for argv in (["--arch", "olmo-1b"],
+                 ["--arch", "olmo-1b", "--devices", "2"],
+                 ["--arch", "dlrm-mlperf", "--devices", "4"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            train_cli.main(argv)
+    # a spawned rank asked for the card raises in the rank
+    from repro_torch.launch.mesh import rank_device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device(1, "cuda")
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -362,17 +362,18 @@ def test_launcher_resume_equals_uninterrupted(capsys, tmp_path):
 
 def test_launcher_refusals(capsys, monkeypatch):
     """asc-splade exits 2, as the reference's retrieval kind does (the MoE
-    archs train: test_torch_moe.py); --devices and a missing card exit
-    with an error."""
+    archs train: test_torch_moe.py, and --devices trains sharded:
+    test_torch_train_devices.py); a missing card exits with an error, on
+    one device and with --devices, before anything trains."""
     with pytest.raises(SystemExit) as e:
         t_launch.main(["--arch", "asc-splade", "--device", "cpu"])
     assert e.value.code == 2
     assert "has no train step" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="sharding.py"):
-        t_launch.main(["--devices", "4", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         t_launch.main(["--steps", "1"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        t_launch.main(["--devices", "4"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_tf.init_params(torch.Generator(),
                          get_arch("olmo-1b").smoke_config())
