@@ -266,13 +266,35 @@ nonzero and prints no result):
                batch first replayed bit for bit), then each run as
                ``python -m`` with no flag: exit 0 and the reference's
                lines.
+ 23. dryrun  — the production dry-run (``repro_torch.launch.dryrun``):
+               torch's fake process group on this torch (a collective of
+               a card tensor); ``python -m repro_torch.launch.dryrun`` on
+               the meta device for one cell an arch and each cell below
+               (``DR_CELLS``, rank 0 of a 256- or 512-rank fake group;
+               every record ok); the memory model on the card for OLMo-1B
+               ``train_4k`` on the (2, 16, 16) mesh and DLRM
+               ``train_batch`` on (16, 16) (each arch's first training
+               cell predicted under 70 GB): built and sharded on meta,
+               only rank 0's blocks drawn on the card, one step under the
+               same fake group, the predicted peak (arguments + temp)
+               within 10% or 512 MiB of ``max_memory_allocated``, FLOPs
+               and collectives equal to the meta record's, then the step
+               timed (rank 0's compute: the fake collectives move
+               nothing); ``asc-splade`` ``serve_k10`` on both meshes on a
+               real shard (the scale world's first 256 or 128 clusters,
+               16 random queries), counts zeroed before and read after:
+               K1, the planner and K2 launch, every kernel call held
+               against its plain version, arguments and collectives equal
+               to the shard-less record's; and ``python -m
+               repro_torch.examples.multipod_launch``, whose numbers must
+               equal its record's.
 
-Phases 8–22 run after the lifecycle phase, the kernels phase (7) between
+Phases 8–23 run after the lifecycle phase, the kernels phase (7) between
 dist and encoder. Every row of the ``kernels`` line gives its launches in
 each phase (``path_launches``: serve, superblock, pipelined, lifecycle,
 frontend, dist (one count a rank), encoder, train_encoder, train_lm,
 recsys_asc, recsys, train_recsys, train_gnn, moe, train_moe,
-train_sharded, examples) and, under ``catalog``, its times at the
+train_sharded, examples, dryrun) and, under ``catalog``, its times at the
 recsys_asc phase's shapes.
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
@@ -4353,6 +4375,261 @@ def phase_examples(torch) -> dict:
     return {"launches": launches}
 
 
+# dryrun phase: a subset of the dry-run on meta (one cell an arch, and
+# each cell the card runs), the memory model's two training cells, the
+# retrieval cell's shards
+DR_CELLS = (
+    ("asc-splade", "serve_k10", "single"), ("asc-splade", "serve_k10",
+                                            "multi"),
+    ("bert4rec", "serve_p99", "single"), ("deepfm", "serve_p99", "single"),
+    ("din", "serve_p99", "single"),
+    ("dlrm-mlperf", "train_batch", "single"),
+    ("llama4-scout-17b-a16e", "decode_32k", "single"),
+    ("meshgraphnet", "molecule", "single"),
+    ("olmo-1b", "decode_32k", "single"), ("olmo-1b", "train_4k", "multi"),
+    ("olmoe-1b-7b", "decode_32k", "single"),
+    ("qwen3-14b", "decode_32k", "single"),
+    ("stablelm-3b", "decode_32k", "single"))
+# the memory model's cells, each arch's first that its record says fits
+# (a candidate outside DR_CELLS gets its meta record here)
+DR_TRAIN = {"olmo-1b": (("train_4k", "multi"), ("train_4k", "single")),
+            "dlrm-mlperf": (("train_batch", "single"),
+                            ("train_batch", "multi"))}
+DR_FIT_BYTES = 70e9
+# predicted peak against the card's: 10% or 512 MiB, whichever is larger
+DR_REL, DR_ABS = 0.10, 512 * 2 ** 20
+DR_RETRIEVAL = ("asc-splade", "serve_k10")
+DR_STEPS = 1
+
+
+def _predicted(rec: dict) -> int:
+    mem = rec["memory"]
+    return mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+
+
+def _checked(rec: dict, what: str) -> dict:
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun: {what} failed: {rec['error']}\n"
+                             f"{rec.get('traceback', '')}")
+    return rec
+
+
+def gc_collect(torch) -> None:
+    """Collect Python's garbage and return the cache to the card, so the
+    next allocation peak starts from live tensors alone."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def production_shard(index, n: int, torch):
+    """Rank 0's shard of a retrieval cell from the scale world: its first
+    ``n`` clusters (the fine fields at the production per-rank shapes:
+    m = 4096 over 16 or 32 cluster shards) copied so the shard owns its
+    memory, and the replicated coarse tables zero-filled at the production
+    geometry (S = 64 superblocks of 64: the distributed path is
+    single-level and never reads them)."""
+    from repro_torch.configs.asc_splade import config
+    from repro_torch.core.types import INDEX_FIELDS, ClusterIndex
+    from repro_torch.launch.cells import coarse_geometry
+    S, cap = coarse_geometry(config().m)
+    coarse = {"super_members": torch.full((S, cap), -1, dtype=torch.int32,
+                                          device=DEVICE),
+              "super_max_stacked": torch.zeros(
+                  (S, index.n_seg + 1, index.vocab), dtype=torch.uint8,
+                  device=DEVICE)}
+    fields = {f: coarse[f] if f in coarse else (
+        getattr(index, f).clone() if f == "scale"
+        else getattr(index, f)[:n].clone()) for f in INDEX_FIELDS}
+    return ClusterIndex(**fields, vocab=index.vocab, n_seg=index.n_seg)
+
+
+def phase_dryrun(index, torch) -> dict:
+    """The production dry-run (``repro_torch.launch.dryrun``).
+
+    (a) torch's fake process group on this torch: one collective on a
+    card tensor. (b) ``python -m repro_torch.launch.dryrun`` on meta for
+    ``DR_CELLS`` (a subprocess; every record ok). (c) The memory model on
+    the card: each ``DR_TRAIN`` cell, built on meta and sharded there, with
+    only rank 0's blocks made real on the card, runs one step under the
+    same fake group: its predicted peak (meta: arguments + temp) within
+    10% or 512 MiB of ``max_memory_allocated`` over the card's allocation
+    before, FLOPs and collectives equal to the meta record's; then the
+    step again, timed (rank 0's compute, no communication). (d) The
+    retrieval cell on each mesh on a real shard (``production_shard``),
+    counts zeroed before and read after: K1, the planner and K2 launch;
+    every kernel call held against its plain version (``hold_kernels``);
+    arguments and collectives equal the shard-less record's. (e)
+    ``python -m repro_torch.examples.multipod_launch`` (run beside (b):
+    both are host-only): its numbers equal its record's."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import fake_pg  # noqa: F401
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+
+    t_phase = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("dryrun: a process group is already joined")
+    # (a), and whether CommDebugMode sees a raw collective on this torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    with fake_world(4):
+        x = torch.ones(8, device=DEVICE)
+        comm = CommDebugMode()
+        with comm:
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # (b), with (e)'s subprocess beside it: both run on the host alone
+    example = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.multipod_launch"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env)
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+                "--out-dir", out_dir]
+        for cell in DR_CELLS:
+            argv += ["--cell", *cell]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(argv, capture_output=True, text=True,
+                                  cwd=ROOT, timeout=600, env=env)
+            ex_out, ex_err = example.communicate(timeout=300)
+        finally:
+            if example.poll() is None:
+                example.kill()
+                example.wait()
+        meta_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or lines[-1] != (
+                f"done: ok={len(DR_CELLS)} fail=0 skipped=0"):
+            raise AssertionError(f"dryrun: the meta run exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr[-3000:]}")
+        recs = {}
+        for a, s, mk in DR_CELLS:
+            with open(os.path.join(out_dir, f"{a}__{s}__{mk}.json")) as f:
+                recs[a, s, mk] = _checked(json.load(f), f"{a} {s} {mk}")
+
+    # (c)
+    memory = []
+    for arch, cands in DR_TRAIN.items():
+        for shape, mk in cands:
+            if (arch, shape, mk) not in recs:
+                recs[arch, shape, mk] = _checked(
+                    dryrun.run_cell(arch, shape, mk, save=False),
+                    f"{arch} {shape} {mk}")
+            if _predicted(recs[arch, shape, mk]) <= DR_FIT_BYTES:
+                break
+        else:
+            raise AssertionError(f"dryrun: no training cell of {arch} is "
+                                 f"predicted under {DR_FIT_BYTES:.0f} B")
+        meta = recs[arch, shape, mk]
+        gc_collect(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card = _checked(dryrun.run_cell(arch, shape, mk, save=False,
+                                        device=DEVICE, repeat=DR_STEPS),
+                        f"{arch} {shape} {mk} on the card")
+        measured = torch.cuda.max_memory_allocated() - base
+        pred = _predicted(meta)
+        tol = max(DR_REL * measured, DR_ABS)
+        row = dict(arch=arch, shape=shape, mesh=mk,
+                   chosen_over=[list(c) for c in cands[:cands.index(
+                       (shape, mk))]],
+                   predicted_bytes=pred, measured_bytes=measured,
+                   rel_err=(pred - measured) / measured, tol_bytes=tol,
+                   argument_bytes=meta["memory"]["argument_size_in_bytes"],
+                   temp_bytes=meta["memory"]["temp_size_in_bytes"],
+                   card_tracker_temp_bytes=card["memory"][
+                       "temp_size_in_bytes"],
+                   flops=card["flops"],
+                   rank0_compute_ms_no_communication=card["step_ms"],
+                   build_s=card["build_s"])
+        memory.append(row)
+        if abs(pred - measured) > tol:
+            raise AssertionError(f"dryrun: {arch} {shape} {mk}: predicted "
+                                 f"{pred} B, the card peaked at {measured} "
+                                 f"B: {row}")
+        for key in ("flops", "collectives"):
+            if card[key] != meta[key]:
+                raise AssertionError(f"dryrun: {arch} {shape} {mk}: {key} "
+                                     f"on the card {card[key]} != meta "
+                                     f"{meta[key]}")
+        del card
+        gc_collect(torch)
+
+    # (d)
+    counted = {name: 0 for name in launch_counts()}
+    retrieval = []
+    for mk in ("single", "multi"):
+        meta = recs[(*DR_RETRIEVAL, mk)]
+        n = 4096 // (16 if mk == "single" else 32)
+        shard = production_shard(index, n, torch)
+        reset_launch_counts()
+        card = _checked(dryrun.run_cell(*DR_RETRIEVAL, mk, save=False,
+                                        device=DEVICE, index=shard,
+                                        repeat=DR_STEPS),
+                        f"{DR_RETRIEVAL} {mk} on the card")
+        got = launch_counts()
+        for name, c in got.items():
+            counted[name] += c
+        missing = [k for k in ("segment_bound_gemm", "plan_wave",
+                               "score_queue") if got[k] == 0]
+        if missing:
+            raise AssertionError(f"dryrun: {mk} retrieval launched no "
+                                 f"{missing}")
+        held = hold_kernels(lambda: _checked(dryrun.run_cell(
+            *DR_RETRIEVAL, mk, save=False, device=DEVICE, index=shard),
+            "retrieval replay"), torch)
+        for key in ("collectives",):
+            if card[key] != meta[key]:
+                raise AssertionError(f"dryrun: retrieval {mk}: {key} on "
+                                     f"the card {card[key]} != "
+                                     f"{meta[key]}")
+        if card["memory"]["argument_size_in_bytes"] != \
+                meta["memory"]["argument_size_in_bytes"]:
+            raise AssertionError(f"dryrun: retrieval {mk}: arguments "
+                                 f"{card['memory']} != {meta['memory']}")
+        retrieval.append(dict(
+            mesh=mk, clusters=n, launches=got, held=held,
+            argument_bytes=card["memory"]["argument_size_in_bytes"],
+            temp_bytes=card["memory"]["temp_size_in_bytes"],
+            batch_ms=card["step_ms"], flops=card["flops"],
+            collectives=card["collectives"]))
+        del shard
+        gc_collect(torch)
+
+    # (e)
+    if example.returncode != 0:
+        raise AssertionError(f"dryrun: multipod_launch exited "
+                             f"{example.returncode}:\n{ex_err[-3000:]}")
+    rec = recs["olmo-1b", "train_4k", "multi"]
+    gib = dryrun.per_device_gib(rec)
+    want = [f"  memory/device       {gib:.2f} GiB (fits an 80 GB H100: "
+            f"{gib * 2 ** 30 < 80e9})",
+            f"  FLOPs/device        {rec['flops_total']:.3e}"] + [
+        f"    {k:20s} x{v['count']:<4d} {v['bytes'] / 2**20:10.1f} MiB"
+        for k, v in rec["collectives"].items() if v["count"]]
+    ex_lines = ex_out.splitlines()
+    lost = [w for w in want if w not in ex_lines]
+    if lost:
+        raise AssertionError(f"dryrun: multipod_launch's lines {ex_lines} "
+                             f"lack {lost}")
+
+    log("dryrun", torch=torch.__version__, fake_collective_on_card=True,
+        comm_debug_mode_raw_all_reduce=comm.get_total_counts(),
+        meta=dict(seconds=round(meta_s, 2), lines=lines[:-1]),
+        memory=memory, retrieval=retrieval,
+        example=dict(lines=ex_lines),
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": counted}
+
+
 def phase_profile(engine, queries, torch) -> None:
     """``--profile``: one 64-query batch under torch.profiler — wall time,
     device time summed over kernels and copies (the busy time on one
@@ -4848,6 +5125,7 @@ def main() -> int:
     later["train_moe"] = phase_train_moe(torch)
     later["train_sharded"] = phase_train_sharded(torch, tl)
     later["examples"] = phase_examples(torch)
+    later["dryrun"] = phase_dryrun(index, torch)
     finish_kernel_rows(rows, later, ra)
     if "--profile" in sys.argv[1:]:
         phase_profile(engine, queries, torch)

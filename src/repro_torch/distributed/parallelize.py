@@ -48,6 +48,7 @@ import contextlib
 import dataclasses
 import math
 import threading
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -56,7 +57,11 @@ from torch import nn
 from repro_torch.distributed import sharding as sh
 
 _state = threading.local()
-_groups: dict = {}
+# id(mesh) -> {axes: this rank's group}; an entry leaves with its mesh
+# (``weakref.finalize``), so a later mesh (the dry-run joins a new
+# process group for each production mesh) never finds a group of a
+# process group that is gone, even where it reuses a freed id
+_groups: dict[int, dict] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +136,11 @@ def group(mesh, axes) -> dist.ProcessGroup | None:
         return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    key = (id(mesh), axes)
-    if key not in _groups:
+    if id(mesh) not in _groups:
+        _groups[id(mesh)] = {}
+        weakref.finalize(mesh, _groups.pop, id(mesh), None)
+    cached = _groups[id(mesh)]
+    if axes not in cached:
         # every rank creates every line's group, in one order
         names = mesh.mesh_dim_names
         ranks = mesh.mesh
@@ -145,8 +153,8 @@ def group(mesh, axes) -> dist.ProcessGroup | None:
             g = dist.new_group(line)
             if dist.get_rank() in line:
                 mine = g
-        _groups[key] = mine
-    return _groups[key]
+        cached[axes] = mine
+    return cached[axes]
 
 
 def axes_size(mesh, axes) -> int:

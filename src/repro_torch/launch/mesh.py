@@ -9,13 +9,19 @@ names the group's axes with a ``DeviceMesh``. Rank ``r`` sits at
 ``numpy.unravel_index(r, shape)``, the row-major order of ``jax.make_mesh``
 over the same device list.
 
-The production meshes of the reference (256 and 512 devices,
-``make_production_mesh``) belong to the training stack and are not
-ported yet. Nothing here runs at import time.
+The production meshes of the reference, (16, 16) ("data", "model") and
+(2, 16, 16) ("pod", "data", "model"), are :func:`make_production_mesh`
+over a default group of 256 or 512 ranks. The dry-run
+(``launch/dryrun.py``) joins such a group as one rank of torch's
+``fake`` backend (:func:`fake_world`): no other rank runs, and every
+collective returns at once without moving data, so one process can lay
+out and run rank 0's program of a production mesh. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import tempfile
@@ -34,6 +40,30 @@ def make_host_mesh(shape=(1, 1), axes=("data", "model"),
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh over the default process group
+    (256 ranks for (16, 16), 512 for (2, 16, 16)), which the caller has
+    joined (the dry-run: :func:`fake_world`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_host_mesh(shape, axes, device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """Join a default process group of ``world_size`` ranks as ``rank``,
+    on torch's ``fake`` backend (no other process: a collective returns
+    without moving data), and leave it on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_device(rank: int, device_type: str) -> torch.device:

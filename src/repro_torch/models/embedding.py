@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.distributed import parallelize as par
 from repro_torch.distributed.sharding import current_rules, entry_axes
+from repro_torch.models.layers import draw_device
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -128,10 +129,12 @@ def embedding_init(gen: torch.Generator, n_rows: int, dim: int,
     generator fills a 53 GB table on the card in seconds, where the CPU
     takes minutes."""
     rows = -(-n_rows // pad_rows_to) * pad_rows_to
-    out = torch.empty((rows, dim), dtype=torch.float32, device=gen.device)
+    drawn_on = draw_device(gen)
+    out = torch.empty((rows, dim), dtype=torch.float32, device=drawn_on)
     step = max(1, _DRAW_ELEMS // max(dim, 1))
-    for lo in range(0, rows, step):
-        out[lo:lo + step].normal_(0.0, 1.0, generator=gen)
-    out.mul_(scale)
-    dev = gen.device if device is None else torch.device(device)
+    if not out.is_meta:
+        for lo in range(0, rows, step):
+            out[lo:lo + step].normal_(0.0, 1.0, generator=gen)
+        out.mul_(scale)
+    dev = drawn_on if device is None else torch.device(device)
     return out.to(device=dev, dtype=dtype)

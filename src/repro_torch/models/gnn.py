@@ -36,7 +36,8 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.parallelize import unshard
 from repro_torch.distributed.sharding import constrain, map_axes
 from repro_torch.models.embedding import segment_sum
-from repro_torch.models.layers import TreeModel, apply_norm, norm_init
+from repro_torch.models.layers import TreeModel, apply_norm, \
+    norm_init, randn
 from repro_torch.models.transformer import DTYPES
 
 
@@ -57,8 +58,7 @@ class GNNConfig:
 def _mlp_init(gen: torch.Generator, dims: list[int], dtype) -> dict:
     return {
         f"l{i}": {
-            "w": (torch.randn((dims[i], dims[i + 1]), generator=gen,
-                              device=gen.device)
+            "w": (randn(gen, (dims[i], dims[i + 1]))
                   * (1.0 / math.sqrt(dims[i]))).to(dtype),
             "b": torch.zeros((dims[i + 1],), dtype=dtype),
         }

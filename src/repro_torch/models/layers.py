@@ -20,6 +20,7 @@ ranks' losses add up to the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -31,6 +32,41 @@ from repro_torch.distributed.parallelize import batch_share, batch_sum, \
 from repro_torch.distributed.sharding import constrain
 
 NORM_EPS = 1e-6
+
+# > 0 inside :func:`shapes_only` (a count, not a thread-local: the LM's
+# initialiser draws its layers on worker threads)
+_shapes_only = 0
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Inside, every initialiser of the port's models makes its tensors on
+    the meta device: a draw's shape and dtype, no values and no storage.
+    A production model (a 53 GB table, 109B expert weights) is built so
+    and sharded before any rank's block is made real
+    (``launch/cells.py``)."""
+    global _shapes_only
+    _shapes_only += 1
+    try:
+        yield
+    finally:
+        _shapes_only -= 1
+
+
+def draw_device(gen: torch.Generator) -> torch.device:
+    """Where an initialiser draws: ``gen``'s device, or the meta device
+    inside :func:`shapes_only`."""
+    return torch.device("meta") if _shapes_only else gen.device
+
+
+def randn(gen: torch.Generator, shape: tuple,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normals drawn from ``gen`` on its device; inside
+    :func:`shapes_only` an empty meta tensor (no draw: a meta draw takes
+    milliseconds, and olmoe's experts make thousands)."""
+    if _shapes_only:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
 
 
 class ParamTree(nn.Module):
@@ -86,8 +122,9 @@ def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
     round; a fraction of the inverse-CDF route's time on a CPU). Drawn on
     ``gen``'s device."""
     stddev = scale / max(1.0, (shape[0] if shape else 1)) ** 0.5
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    x = randn(gen, shape)
+    if x.is_meta:
+        return x.to(dtype)
     flat = x.view(-1)
     redraw = (flat.abs() >= 2.0).nonzero().squeeze(1)
     while redraw.numel():
@@ -99,8 +136,9 @@ def truncated_normal_init(gen: torch.Generator, shape: tuple, scale: float,
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32) -> torch.Tensor:
-    x = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    x = randn(gen, (d_in, d_out))
+    if x.is_meta:
+        return x.to(dtype)
     return (x * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
@@ -173,7 +211,7 @@ def mlp_stack_init(gen: torch.Generator, dims: list[int],
     return {
         f"layer{i}": {"w": dense_init(gen, dims[i], dims[i + 1], dtype),
                       "b": torch.zeros((dims[i + 1],), dtype=dtype,
-                                       device=gen.device)}
+                                       device=draw_device(gen))}
         for i in range(len(dims) - 1)
     }
 

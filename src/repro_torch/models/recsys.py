@@ -41,7 +41,8 @@ from repro_torch.distributed.parallelize import batch_share, batch_sum, \
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.embedding import embedding_init, embedding_lookup
 from repro_torch.models.layers import (TreeModel, apply_mlp_stack,
-                                       apply_norm, mlp_stack_init, norm_init)
+                                       apply_norm, draw_device,
+                                       mlp_stack_init, norm_init, randn)
 
 NEG_MASK = -1e30      # the reference's masked attention logit
 
@@ -250,7 +251,8 @@ def deepfm_init(gen: torch.Generator, cfg: DeepFMConfig,
         "w1": embedding_init(gen, rows, 1),
         "mlp": mlp_stack_init(
             gen, [cfg.n_fields * cfg.embed_dim, *cfg.mlp, 1]),
-        "bias": torch.zeros((), dtype=torch.float32, device=gen.device),
+        "bias": torch.zeros((), dtype=torch.float32,
+                            device=draw_device(gen)),
     }, device)
 
 
@@ -308,8 +310,7 @@ def bert4rec_init(gen: torch.Generator, cfg: Bert4RecConfig,
     d = cfg.embed_dim
 
     def init(i: int, o: int) -> torch.Tensor:
-        return torch.randn((i, o), generator=gen,
-                           device=gen.device) / math.sqrt(i)
+        return randn(gen, (i, o)) / math.sqrt(i)
 
     def block() -> dict:
         p = {k: init(d, d) for k in ("wq", "wk", "wv", "wo")}

@@ -129,12 +129,26 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update)
 
 
+def _row_acc(p: torch.Tensor) -> torch.Tensor:
+    """Zeros, one a row of ``p``; for a sharded ``p`` (a ``DTensor``) the
+    block of its rows this rank holds, split as ``p``'s rows are (the
+    reference's ``P(spec[0])``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(p, DTensor):
+        return torch.zeros(p.shape[:1], dtype=F32, device=p.device)
+    local = p.to_local()
+    rows = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                 for q in p.placements)
+    return DTensor.from_local(
+        torch.zeros(local.shape[:1], dtype=F32, device=local.device),
+        p.device_mesh, rows, run_check=False, shape=p.shape[:1],
+        stride=(1,) if p.dim() else ())
+
+
 def rowwise_adagrad(schedule: Schedule, eps: float = 1e-8) -> Optimizer:
     """One accumulator scalar per table *row* (FBGEMM/MLPerf style)."""
     def init(params):
-        return {"acc": tree_map(
-            lambda p: torch.zeros(p.shape[:1], dtype=F32, device=p.device),
-            params)}
+        return {"acc": tree_map(_row_acc, params)}
 
     def update(grads, state, params, step):
         lr = schedule(step)

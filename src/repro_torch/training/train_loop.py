@@ -50,17 +50,21 @@ class TrainConfig:
 
 
 def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
-                    cfg: TrainConfig, compression_group=None, layout=None):
+                    cfg: TrainConfig, compression_group=None, layout=None,
+                    batch_is_local: bool = False):
     """``loss_fn(model, batch) -> scalar``. Returns ``step(model,
     opt_state, batch, step_no, [ef_state]) -> (model, opt_state,
     metrics[, ef])``; the model's parameters are updated in place and the
     same module is returned. ``compression_group`` (a process group, e.g.
     ``torch.distributed.group.WORLD``) turns on ``compressed_mean`` when
     ``cfg.grad_compression`` is set; ``None`` leaves it off. ``layout``
-    runs the sharded step (every rank calls it with the whole batch)."""
+    runs the sharded step (every rank calls it with the whole batch, or
+    with its own rows, split over ``layout.batch_axes``, when
+    ``batch_is_local``)."""
     compress = cfg.grad_compression and compression_group is not None
     if layout is not None:
-        return _sharded_step(loss_fn, optimizer, cfg, layout)
+        return _sharded_step(loss_fn, optimizer, cfg, layout,
+                             batch_is_local)
 
     def value_and_grad(model, params, batch):
         loss = loss_fn(model, batch)
@@ -111,7 +115,7 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
 
 
 def _sharded_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
-                  cfg: TrainConfig, layout):
+                  cfg: TrainConfig, layout, batch_is_local: bool = False):
     if cfg.microbatches > 1:
         raise ValueError("the sharded step takes no microbatches")
     from torch.distributed.tensor import DTensor
@@ -130,7 +134,8 @@ def _sharded_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
 
     def step(model: nn.Module, opt_state, batch, step_no):
         params = module_tree(model)
-        rows, axes = par.local_batch(batch, layout)
+        rows, axes = ((batch, layout.batch_axes) if batch_is_local
+                      else par.local_batch(batch, layout))
         # a batch that does not divide the axes runs whole on every rank
         with par.use_layout(par.Layout(layout.rules, axes)):
             loss = loss_fn(model, rows)

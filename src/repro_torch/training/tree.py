@@ -26,18 +26,24 @@ LEAF = _Leaf()
 def leaves(tree) -> list:
     """The leaves of ``tree`` in ``jax.tree_util.tree_leaves``' order."""
     out: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k])
-        elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
-        elif node is not None:
-            out.append(node)
-    walk(tree)
+    _walk(tree, out)
     return out
+
+
+# module-level recursions: a nested function that calls itself is a
+# reference cycle (the function and its own closure cell), which would
+# keep the list of leaves, and every tensor in it, alive until the
+# cyclic garbage collector runs (a training step's gradients and updates
+# stayed alive into the next step)
+def _walk(node, out: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], out)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _walk(v, out)
+    elif node is not None:
+        out.append(node)
 
 
 def structure(tree):
@@ -54,18 +60,19 @@ def unflatten(struct, flat: list):
     """Fill ``struct`` (from :func:`structure`) with ``flat`` in leaf
     order; the inverse of :func:`leaves`."""
     it = iter(flat)
-
-    def fill(node):
-        if isinstance(node, dict):
-            got = {k: fill(node[k]) for k in sorted(node)}
-            return {k: got[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(fill(v) for v in node)
-        return None if node is None else next(it)
-    out = fill(struct)
+    out = _fill(struct, it)
     if next(it, LEAF) is not LEAF:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def _fill(node, it):
+    if isinstance(node, dict):
+        got = {k: _fill(node[k], it) for k in sorted(node)}
+        return {k: got[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fill(v, it) for v in node)
+    return None if node is None else next(it)
 
 
 def tree_map(fn, tree, *rest):
