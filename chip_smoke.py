@@ -240,41 +240,60 @@ nonzero and prints no result):
                presets need 110 GB and more);
  21. train_sharded — sharded training, its two gloo ranks on the one
                card: ``python -m repro_torch.launch.train --arch olmo-1b
-               --preset full --devices 2 --steps 10 --batch 8 --seq 512
-               --ckpt-dir D`` (mesh (2, 1), FSDP over "data"), killed
-               with its ranks once its step-4 checkpoint is on disk (a
-               preemption at step 5): its mesh line, finite losses for
-               steps 0-4 within ``TS_LOSS_RTOL`` of train_lm's one-device
-               run of the same command and step 0's of a one-device step
-               made here; the checkpoint (whole tensors) resumed on one
-               device for steps 5-9 within the same of train_lm's; step
-               ms, tokens/s, MFU, the card's peak memory (``nvidia-smi``,
-               polled) and each rank's (half of what the card gained
-               while the two symmetric ranks ran), beside train_lm's. Then olmoe at its published widths,
-               depth 2, on a (1, 2) mesh through the expert-parallel
-               all-to-all (fp32, 2 x 128 tokens): at no-drop capacity the
-               loss (rtol 1e-5) and every gradient (1e-4 of its largest
-               entry) against one device, and at capacity 1.25 the kept
-               share of picks of each source shard. Then DLRM's 53.25 GB
-               table row-sharded over the two ranks (26.6 GB each): a
-               2,048-example lookup, timed, and ids across the shard
-               boundary against the rows gathered whole (exact);
- 22. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
+               --preset full --layers 4 --devices 2 --steps 10 --batch 8
+               --seq 512 --ckpt-dir D`` (OLMo-1B's widths, its depth cut
+               from 16 to 4 layers for time; mesh (2, 1), FSDP over
+               "data"), killed with its ranks once its step-4 checkpoint
+               is on disk (a preemption at step 5): its mesh line, finite
+               losses for steps 0-4 within ``TS_LOSS_RTOL`` of the same
+               ten steps run here on one device uninterrupted; the
+               checkpoint (whole tensors) resumed on one device for steps
+               5-9 within the same; step ms, tokens/s, MFU, the card's
+               peak memory (``nvidia-smi``, polled) and each rank's (half
+               of what the card gained while the two symmetric ranks ran),
+               beside train_lm's. Then DLRM's 53.25 GB table row-sharded
+               over the two ranks (26.6 GB each): a 2,048-example lookup,
+               timed, and ids across the shard boundary against the rows
+               gathered whole (exact);
+ 22. model_axis — the LM's 'model' axis as ``lm_rules`` lays it, on two
+               gloo ranks sharing the card, a ("data" 1, "model" 2) mesh:
+               OLMo-1B at its widths, cut to 4 layers for time, two AdamW
+               steps sequence-parallel on 2 x 1,024 tokens (each rank its
+               512 positions, K/V gathered for context-parallel
+               attention), a 2 x 1,024 prefill (each rank's K/V chunk its
+               cache block) and four greedy decode steps into the cache
+               regrown to 1,032 slots over 'model' (the MLP and the vocab
+               tensor-parallel, flash-decode over the blocks, the cache
+               written in place), in bf16 and fp32 compute, each held to
+               the same run on one device in this process: losses and
+               prefill logits within 1e-4 relative, fp32 decode logits
+               too, bf16 decode logits within 4 bf16 ulps in norm, greedy
+               tokens equal, the decode cache's storage unchanged; the
+               first step's gradients in fp32, gathered whole, each within
+               1e-4 of its largest entry of one device's. Then
+               olmoe at its widths, depth 2, through the expert-parallel
+               all-to-all on each rank's chunk of the sequence (fp32, 2 x
+               128 tokens): at no-drop capacity the loss (rtol 1e-5) and
+               every gradient (1e-4 of its largest entry) against one
+               device, and at capacity 1.25 the kept share of picks;
+ 23. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
                on the card, stage by stage (the planner and K2 must
                launch; rank-safe recall@10 1.000; every result against
                the on-card plain path with ``check_audited``, each served
                batch first replayed bit for bit), then each run as
                ``python -m`` with no flag: exit 0 and the reference's
                lines.
- 23. dryrun  — the production dry-run (``repro_torch.launch.dryrun``):
+ 24. dryrun  — the production dry-run (``repro_torch.launch.dryrun``):
                torch's fake process group on this torch (a collective of
                a card tensor); ``python -m repro_torch.launch.dryrun`` on
                the meta device for one cell an arch and each cell below
                (``DR_CELLS``, rank 0 of a 256- or 512-rank fake group;
                every record ok); the memory model on the card for OLMo-1B
-               ``train_4k`` on the (2, 16, 16) mesh and DLRM
-               ``train_batch`` on (16, 16) (each arch's first training
-               cell predicted under 70 GB): built and sharded on meta,
+               ``train_4k`` on the (2, 16, 16) mesh (the sequence over
+               'model') and DLRM ``train_batch`` on (16, 16) (each arch's
+               first training cell predicted under 70 GB), and OLMo-1B
+               ``decode_32k`` on (16, 16) at its production block (8 rows,
+               2,048 of the cache's 32,768 slots): built and sharded on meta,
                only rank 0's blocks drawn on the card, one step under the
                same fake group, the predicted peak (arguments + temp)
                within 10% or 512 MiB of ``max_memory_allocated``, FLOPs
@@ -289,13 +308,13 @@ nonzero and prints no result):
                repro_torch.examples.multipod_launch``, whose numbers must
                equal its record's.
 
-Phases 8–23 run after the lifecycle phase, the kernels phase (7) between
+Phases 8–24 run after the lifecycle phase, the kernels phase (7) between
 dist and encoder. Every row of the ``kernels`` line gives its launches in
 each phase (``path_launches``: serve, superblock, pipelined, lifecycle,
 frontend, dist (one count a rank), encoder, train_encoder, train_lm,
 recsys_asc, recsys, train_recsys, train_gnn, moe, train_moe,
-train_sharded, examples, dryrun) and, under ``catalog``, its times at the
-recsys_asc phase's shapes.
+train_sharded, model_axis, examples, dryrun) and, under ``catalog``, its
+times at the recsys_asc phase's shapes.
 The last two lines are the ``kernels`` summary and the card line; the very
 last is ``{"ok": true, "device": {...}}``. With ``--profile`` one more
 phase traces one 64-query batch of the serve phase's engine and one of
@@ -3801,12 +3820,12 @@ def phase_train_moe(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 TS_ARCH = "olmo-1b"
+TS_LAYERS = 4               # of 16: a cut for time (widths published)
 TS_DEVICES = 2              # the launcher's (2, 1) mesh: FSDP over "data"
 TS_STEPS, TS_BATCH, TS_SEQ = 10, 8, 512
 TS_RESUME_AT = 4            # the launcher checkpoints every 5 steps
 TS_LOSS_RTOL = 1e-3         # bf16 compute: the ranks' sums run in other orders
-TS_MOE_BATCH, TS_MOE_SEQ = 2, 128
-TS_MOE_SEED = SEED + 70
+TS_SEED = SEED + 70
 TS_DLRM_BATCH = 2048
 TS_DLRM_SLICE = 65_536      # rows around the shard boundary held whole
 TS_DLRM_REPS = 20
@@ -3835,25 +3854,6 @@ def _card_memory_mb(stop=None, out: list | None = None) -> float | None:
             return None
 
 
-def _ts_moe_cfg(capacity_factor: float | None = None):
-    """olmoe at its published widths, depth 2, fp32; capacity factor E / K
-    (no pick dropped) unless given."""
-    from repro_torch.configs import get_arch
-    full = get_arch(MOE_ARCH).config()
-    moe = full.moe
-    cf = moe.n_experts / moe.top_k if capacity_factor is None \
-        else capacity_factor
-    return dataclasses.replace(
-        full, n_layers=MOE_CHECK_DEPTH, dtype="float32",
-        moe=dataclasses.replace(moe, capacity_factor=cf))
-
-
-def _ts_moe_batch(vocab: int) -> dict:
-    from repro_torch.data.pipeline import LMDataSpec, lm_batch
-    return {k: v[:, :TS_MOE_SEQ] for k, v in lm_batch(
-        LMDataSpec(vocab, TS_MOE_SEQ + 1, TS_MOE_BATCH), 0).items()}
-
-
 def _mb(n: float | None) -> float | None:
     return None if n is None else round(n / 1e6, 1)
 
@@ -3869,110 +3869,6 @@ def _peak_mb(dev) -> float | None:
     if dev.type != "cuda":
         return None
     return round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)
-
-
-def _ts_moe_grads(model, batch, torch) -> tuple:
-    from repro_torch.models import transformer as tf
-    from repro_torch.training.tree import leaves, module_tree
-    loss = tf.loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, leaves(module_tree(model)))
-    return float(loss.detach()), grads
-
-
-def _ts_moe_rank(rank: int, device_type: str, cfgs: dict,
-                 batch: dict) -> tuple[dict, list | None]:
-    """One rank of the (1, 2) mesh: olmoe at depth 2 with the experts split
-    over 'model' (the all-to-all path), at no-drop capacity
-    (``cfgs["no_drop"]``), then at capacity 1.25 (``cfgs["cf_1.25"]``).
-    Returns the rows and, on rank 0, the no-drop run's whole gradients
-    (on the host)."""
-    import torch
-
-    from repro_torch.distributed import parallelize as par
-    from repro_torch.distributed import sharding as sh
-    from repro_torch.launch.mesh import make_host_mesh, rank_device
-    from repro_torch.models import moe
-    from repro_torch.models import transformer as tf
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = rank_device(rank, device_type)
-    mesh = make_host_mesh((1, TS_DEVICES), ("data", "model"), dev.type)
-    rules = sh.lm_rules(mesh)
-    out, whole = {}, None
-    batch = {k: v.to(dev) for k, v in batch.items()}
-    model = tf.init_params(torch.Generator(device=dev).manual_seed(
-        TS_MOE_SEED), cfgs["no_drop"], device=dev)
-    par.shard_module(model, rules, tf.param_axes(model.cfg))
-    for name, cfg in cfgs.items():
-        set_lm_cfg(model, cfg)
-        calls, kept = [], []
-        real_a2a, real_dispatch = par.all_to_all, moe.dispatch
-
-        def a2a(x, g):
-            calls.append(tuple(x.shape))
-            return real_a2a(x, g)
-
-        def dispatch(x, gates, idx, E, C):
-            res = real_dispatch(x, gates, idx, E, C)
-            kept.append(float(res[1][3].float().mean()))
-            return res
-
-        par.all_to_all, moe.dispatch = a2a, dispatch
-        try:
-            _sync(dev)
-            t0 = time.perf_counter()
-            with par.use_layout(par.Layout(rules, par.batch_axes_of(rules))):
-                loss, grads = _ts_moe_grads(model, batch, torch)
-            _sync(dev)
-            fb_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            par.all_to_all, moe.dispatch = real_a2a, real_dispatch
-        row = dict(loss=loss, a2a_calls=len(calls), kept=kept,
-                   fwd_bwd_ms=round(fb_ms, 1), peak_mb=_peak_mb(dev))
-        if name == "no_drop":
-            # collectives: both ranks gather, rank 0 keeps them
-            full = [par.full(g).cpu() for g in grads]
-            whole = full if rank == 0 else None
-            del full
-        out[name] = row
-        del grads
-    del model
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    return out, whole
-
-
-def _ts_moe_reference(cfg, batch: dict, device_type: str,
-                      got: list) -> dict:
-    """The no-drop run on one device (the same draw, no mesh): its loss
-    and each gradient's largest difference to ``got`` over its largest
-    entry."""
-    import torch
-
-    from repro_torch.launch.mesh import rank_device
-    from repro_torch.models import transformer as tf
-    dev = rank_device(0, device_type)
-    model = tf.init_params(torch.Generator(device=dev).manual_seed(
-        TS_MOE_SEED), cfg, device=dev)
-    loss, grads = _ts_moe_grads(
-        model, {k: v.to(dev) for k, v in batch.items()}, torch)
-    errs = [float((g.cpu() - w).abs().max()) / (float(w.abs().max()) or 1.0)
-            for w, g in zip(got, grads)]
-    return {"ref_loss": loss, "grad_rel_err_max": max(errs)}
-
-
-def _ts_rank(rank: int, device_type: str, cfgs: dict, batch: dict,
-             dlrm_cfg, n_slice: int) -> dict:
-    """One rank of the (1, 2) meshes: the all-to-all MoE, then DLRM's
-    row-sharded table (the MoE's memory freed first); then rank 0 alone
-    runs the MoE's no-drop step on one device against the gathered
-    gradients."""
-    moe, whole = _ts_moe_rank(rank, device_type, cfgs, batch)
-    out = {"moe": moe,
-           "dlrm": _ts_dlrm_rank(rank, device_type, dlrm_cfg, n_slice)}
-    if rank == 0:
-        moe["no_drop"].update(_ts_moe_reference(cfgs["no_drop"], batch,
-                                                device_type, whole))
-    return out
 
 
 def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
@@ -3998,7 +3894,7 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
     pl_ = sh.placements(mesh, spec)
     t0 = time.perf_counter()
     block = embedding_init(torch.Generator(device=dev).manual_seed(
-        TS_MOE_SEED + rank), rows // TS_DEVICES, cfg.embed_dim, device=dev)
+        TS_SEED + rank), rows // TS_DEVICES, cfg.embed_dim, device=dev)
     table = DTensor.from_local(block, mesh, pl_, run_check=False,
                                shape=(rows, cfg.embed_dim),
                                stride=(cfg.embed_dim, 1))
@@ -4018,7 +3914,7 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
         lookup_ms = (time.perf_counter() - t0) / TS_DLRM_REPS * 1e3
         # ids in [lo, lo + n_slice), half of it on each rank
         lo = rows // 2 - n_slice // 2
-        g = torch.Generator().manual_seed(TS_MOE_SEED)
+        g = torch.Generator().manual_seed(TS_SEED)
         sl_ids = (torch.randint(0, n_slice, ids.shape, generator=g)
                   + lo).to(dev)
         got = embedding_lookup(table, sl_ids)
@@ -4037,24 +3933,21 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
 
 def phase_train_sharded(torch, tl: dict) -> dict:
     """Sharded training with its ranks sharing the card (gloo): OLMo-1B at
-    its published widths and depth through ``python -m
-    repro_torch.launch.train --preset full --devices 2 --steps 10``
-    (mesh (2, 1), FSDP, 8 x 512), stopped (its process group killed)
-    once the step-4 checkpoint it writes after step 4 is on disk: a
-    preemption at step 5. Step 0's loss against a one-device step at the
-    same seed and batch made here; the checkpoint (whole tensors) resumed
-    on one device for steps 5-9 against train_lm's uninterrupted
-    one-device run of the same launcher command (both within
-    ``TS_LOSS_RTOL``); step ms (from the times rank 0's step lines
-    arrive), tokens/s, MFU, the card's peak memory (``nvidia-smi``,
-    polled) and each rank's (half of what the card gained while the two
-    symmetric ranks ran) beside train_lm's. Then olmoe at its
-    published widths, depth 2, on a (1, 2) mesh through the
-    expert-parallel all-to-all: a forward and backward (fp32) at no-drop
-    capacity against the one-device ``apply_moe`` path, and one at
-    capacity 1.25 with its kept share of picks. Then DLRM's 53.25 GB
-    table row-sharded over the two ranks: a 2,048-example lookup, timed,
-    and ids across the shard boundary against the rows gathered whole."""
+    its published widths, cut to ``TS_LAYERS`` layers, through ``python
+    -m repro_torch.launch.train --preset full --layers 4 --devices 2
+    --steps 10`` (mesh (2, 1), FSDP, 8 x 512), stopped (its process group
+    killed) once the step-4 checkpoint it writes after step 4 is on disk:
+    a preemption at step 5. The launcher's ten steps run here on one
+    device, uninterrupted (its seed, batches and optimizer); the mesh's
+    steps 0-4 and the checkpoint (whole tensors) resumed on one device
+    for steps 5-9 against them (both within ``TS_LOSS_RTOL``); step ms
+    (from the times rank 0's step lines arrive), tokens/s, MFU, the
+    card's peak memory (``nvidia-smi``, polled) and each rank's (half of
+    what the card gained while the two symmetric ranks ran) beside
+    train_lm's. Then DLRM's 53.25 GB table row-sharded over the two
+    ranks: a 2,048-example lookup, timed, and ids across the shard
+    boundary against the rows gathered whole. (olmoe's all-to-all runs
+    in the model_axis phase.)"""
     import signal
     import tempfile
     import threading
@@ -4072,14 +3965,15 @@ def phase_train_sharded(torch, tl: dict) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     reset_launch_counts()
-    full = get_arch(TS_ARCH).config()
+    full = dataclasses.replace(get_arch(TS_ARCH).config(),
+                               n_layers=TS_LAYERS)
     out: dict = {}
-    want = tl["summary"]["losses"]       # train_lm: one device, uninterrupted
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         step_dir = os.path.join(ckpt, f"step_{TS_RESUME_AT:010d}")
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               TS_ARCH, "--preset", "full", "--devices", str(TS_DEVICES),
+               TS_ARCH, "--preset", "full", "--layers", str(TS_LAYERS),
+               "--devices", str(TS_DEVICES),
                "--steps", str(TS_STEPS), "--batch", str(TS_BATCH), "--seq",
                str(TS_SEQ), "--ckpt-dir", ckpt]
         stop, card = threading.Event(), []
@@ -4139,26 +4033,32 @@ def phase_train_sharded(torch, tl: dict) -> dict:
                and time.perf_counter() < free_by):
             time.sleep(0.5)
 
-        # one device, here: the launcher's init (seed 0) and batch 0
-        t0 = time.perf_counter()
-        model = tf.init_params(torch.Generator().manual_seed(0), full,
-                               device=DEVICE)
-        init_s = time.perf_counter() - t0
+        # one device, here: the launcher's init (seed 0), its batches and
+        # optimizer, all ten steps uninterrupted
         spec = LMDataSpec(full.vocab, TS_SEQ + 1, TS_BATCH)
 
         def batch(step: int) -> dict:
             return {k: v[:, :TS_SEQ].to(DEVICE)
                     for k, v in lm_batch(spec, step).items()}
 
-        with torch.no_grad():
-            loss0 = float(tf.loss_fn(model, batch(0)))
-        if not math.isclose(loss0, losses[0], rel_tol=TS_LOSS_RTOL):
-            raise AssertionError(f"train_sharded: step 0's loss {losses[0]} "
-                                 f"on the mesh against {loss0} on one "
-                                 f"device")
-        # the mesh's step-4 checkpoint resumed on one device
+        def launcher_init():
+            return tf.init_params(torch.Generator().manual_seed(0), full,
+                                  device=DEVICE)
+
         opt = opt_lib.adamw(opt_lib.cosine_schedule(
             3e-4, warmup=max(1, TS_STEPS // 10), total=TS_STEPS))
+        step = make_train_step(tf.loss_fn, opt, TrainConfig(steps=TS_STEPS))
+        t0 = time.perf_counter()
+        model = launcher_init()
+        init_s = time.perf_counter() - t0
+        state, want = opt.init(module_tree(model)), []
+        for s in range(TS_STEPS):
+            model, state, mm = step(model, state, batch(s), s)
+            want.append(float(mm["loss"]))
+        del model, state, mm
+        loss0 = want[0]
+        # the mesh's step-4 checkpoint resumed on one device
+        model = launcher_init()
         state = opt.init(module_tree(model))
         mgr = CheckpointManager(ckpt)
         t0 = time.perf_counter()
@@ -4170,7 +4070,6 @@ def phase_train_sharded(torch, tl: dict) -> dict:
         restore_s = time.perf_counter() - t0
         ckpt_mb = sum(os.path.getsize(os.path.join(step_dir, fn))
                       for fn in os.listdir(step_dir)) / 1e6
-        step = make_train_step(tf.loss_fn, opt, TrainConfig(steps=TS_STEPS))
         resumed = []
         for s in range(TS_RESUME_AT + 1, TS_STEPS):
             model, state, mm = step(model, state, batch(s), s)
@@ -4196,6 +4095,8 @@ def phase_train_sharded(torch, tl: dict) -> dict:
     flops = 6.0 * full.param_count() * tokens
     out["olmo"] = dict(
         launcher=" ".join(cmd[1:]), mesh={"data": TS_DEVICES, "model": 1},
+        layers=TS_LAYERS, depth_cut=f"{TS_LAYERS} of "
+        f"{get_arch(TS_ARCH).config().n_layers} layers, for time",
         backend="gloo", stopped_after_s=round(run_s, 2),
         losses=[round(x, 4) for x in losses],
         one_device_loss0=round(loss0, 4), one_device_init_s=round(init_s, 2),
@@ -4216,45 +4117,503 @@ def phase_train_sharded(torch, tl: dict) -> dict:
                       if card and before_mb is not None else None),
         train_lm={k: v for k, v in tl["summary"].items() if k != "losses"})
 
-    # olmoe at depth 2 through the all-to-all, then DLRM's whole table,
-    # its rows split: one spawn of two ranks on (1, 2) meshes
+    # DLRM's whole table, its rows split: two ranks on a (1, 2) mesh
     from repro_torch.configs import dlrm_mlperf
-    cfg = _ts_moe_cfg()
-    cfgs = {"no_drop": cfg, "cf_1.25": _ts_moe_cfg(1.25)}
     t0 = time.perf_counter()
-    both = spawn_ranks(_ts_rank, TS_DEVICES,
-                       (DEVICE, cfgs, _ts_moe_batch(cfg.vocab),
-                        dlrm_mlperf.config(), TS_DLRM_SLICE),
-                       timeout_s=900.0)
+    dl = spawn_ranks(_ts_dlrm_rank, TS_DEVICES,
+                     (DEVICE, dlrm_mlperf.config(), TS_DLRM_SLICE),
+                     timeout_s=900.0)
     ranks_s = time.perf_counter() - t0
-    res, dl = [r["moe"] for r in both], [r["dlrm"] for r in both]
-    nd = res[0]["no_drop"]
-    if not (all(r[k]["a2a_calls"] > 0 for r in res for k in r)
-            and math.isclose(nd["loss"], nd["ref_loss"], rel_tol=1e-5)
-            and nd["grad_rel_err_max"] < 1e-4):
-        raise AssertionError(f"train_sharded: the all-to-all MoE against "
-                             f"one device: {res}")
-    out["olmoe_a2a"] = dict(
-        mesh={"data": 1, "model": TS_DEVICES}, depth=cfg.n_layers,
-        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-        batch=TS_MOE_BATCH, seq=TS_MOE_SEQ,
-        no_drop_capacity_factor=cfg.moe.capacity_factor,
-        loss=round(nd["loss"], 6), one_device_loss=round(nd["ref_loss"], 6),
-        grad_rel_err_max=nd["grad_rel_err_max"], tolerance=dict(
-            loss_rtol=1e-5, grad_err_over_max=1e-4),
-        a2a_calls=[r["no_drop"]["a2a_calls"] for r in res],
-        fwd_bwd_ms=[r["no_drop"]["fwd_bwd_ms"] for r in res],
-        cf_1_25=dict(loss=round(res[0]["cf_1.25"]["loss"], 6),
-                     kept=[[round(k, 4) for k in r["cf_1.25"]["kept"]]
-                           for r in res],
-                     fwd_bwd_ms=[r["cf_1.25"]["fwd_bwd_ms"] for r in res]),
-        rank_peak_mb=[r["cf_1.25"]["peak_mb"] for r in res])
     if not all(r["slice_equal"] and r["finite"] for r in dl):
         raise AssertionError(f"train_sharded: the row-sharded lookup: {dl}")
     out["dlrm_lookup"] = dict(ranks=dl)
-    out["a2a_and_lookup_s"] = round(ranks_s, 2)
+    out["lookup_s"] = round(ranks_s, 2)
     launches = launch_counts()
     log("train_sharded", **out, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# model_axis: the LM's 'model' axis on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+MA_ARCH = "olmo-1b"
+MA_DEPTH = 4                # of 16 layers: a cut for time (widths published)
+MA_MESH = (1, 2)            # ("data", "model")
+MA_STEPS, MA_BATCH, MA_SEQ = 2, 2, 1024
+MA_DECODE = 4
+MA_SLOTS = MA_SEQ + 8       # the decode cache: the prompt and 8 more slots
+MA_LR = 3e-4
+MA_RTOL = 1e-4              # losses and logits against one device
+# serving runs in both (the KV cache in the compute dtype): bf16 decode's
+# tensor-parallel sums (the MLP's down product, the flash-decode combine,
+# the vocab blocks' head) round at other points than one device's, so its
+# logits are held to bf16's rounding (4 ulps, in norm) and its greedy
+# tokens exactly; fp32 decode holds MA_RTOL and so carries the tight decode
+# check (a fault of a few 1e-3 in norm can pass in bf16)
+MA_SERVE_DTYPES = ("bfloat16", "float32")
+MA_BF16_L2 = 4 * 2.0 ** -8
+MA_GRAD_RTOL = 1e-4         # fp32 gradients, of each leaf's largest entry
+MA_SEED = SEED + 90
+MA_MOE_BATCH, MA_MOE_SEQ = 2, 128
+
+
+def _ma_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MA_ARCH).config(), n_layers=MA_DEPTH)
+
+
+def _ma_batch(vocab: int, step: int, batch: int = MA_BATCH,
+              seq: int = MA_SEQ) -> dict:
+    from repro_torch.data.pipeline import LMDataSpec, lm_batch
+    return {k: v[:, :seq] for k, v in lm_batch(
+        LMDataSpec(vocab, seq + 1, batch), step).items()}
+
+
+def ma_run(dev, cfg, mesh=None) -> dict:
+    """OLMo-1B's ``cfg`` (``_ma_cfg``: its published widths, ``MA_DEPTH``
+    layers, bf16 compute on fp32 masters, remat), drawn on ``dev`` from
+    ``MA_SEED``:
+    ``MA_STEPS`` AdamW steps on ``MA_BATCH`` x ``MA_SEQ``, then a fresh
+    draw serves: prefill of batch ``MA_STEPS``'s tokens, the cache grown
+    to ``MA_SLOTS`` slots, ``MA_DECODE`` greedy decode steps. On ``mesh``
+    (this rank's part of it, under ``lm_rules``: the sequence over 'model'
+    in training and prefill, the MLP, the vocab and the cache's slots over
+    it in decode), else on one device. Losses, logits (on the host), the
+    greedy tokens, whether the decode cache kept its storage, times and
+    peak memory."""
+    import torch
+
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.training.tree import module_tree
+
+    def draw():
+        return tf.init_params(torch.Generator(device=dev).manual_seed(
+            MA_SEED), cfg, device=dev)
+
+    model, layout = draw(), None
+    if mesh is not None:
+        rules = sh.lm_rules(mesh)
+        par.shard_module(model, rules, tf.param_axes(cfg))
+        layout = par.Layout(rules, par.batch_axes_of(rules))
+    opt = opt_lib.adamw(opt_lib.constant_schedule(MA_LR))
+    state = opt.init(module_tree(model))
+    step = make_train_step(tf.loss_fn, opt, TrainConfig(), layout=layout)
+    losses, step_ms = [], []
+    for i in range(MA_STEPS):
+        b = {k: v.to(dev) for k, v in _ma_batch(cfg.vocab, i).items()}
+        _sync(dev)
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, b, i)
+        losses.append(float(m["loss"]))
+        step_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+    out = {"train": dict(losses=losses, step_ms=step_ms,
+                         peak_mb=_peak_mb(dev))}
+    del model, state, step, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    out["serve"] = {dt: ma_serve(dev, dataclasses.replace(cfg, dtype=dt),
+                                 mesh) for dt in MA_SERVE_DTYPES}
+    return out
+
+
+def ma_serve(dev, cfg, mesh=None) -> dict:
+    """``ma_run``'s serving half in ``cfg``'s compute dtype, the KV cache
+    in the same dtype: a fresh draw, prefill, the cache grown, greedy
+    decode steps."""
+    import torch
+
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(MA_SEED),
+                           cfg, device=dev)
+    pre = dec = None
+    if mesh is not None:
+        rules = sh.lm_rules(mesh, training=False)
+        par.shard_module(model, rules, tf.param_axes(cfg))
+        pre = par.Layout(rules, par.batch_axes_of(rules))
+        drules = sh.lm_rules(mesh, training=False, decode=True)
+        dec = par.Layout(drules, par.batch_axes_of(drules))
+    toks = {"tokens": _ma_batch(cfg.vocab, MA_STEPS)["tokens"].to(dev)}
+    with torch.no_grad():
+        with par.use_layout(pre):
+            if pre is not None:
+                toks, _ = par.local_batch(toks, pre)
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = tf.prefill(model, toks["tokens"],
+                                       cache_dtype=cfg.compute_dtype)
+            _sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            # each rank's block gathered along the sequence: the whole
+            # prompt's cache, from which each decode block takes its slots
+            g = par.seq_group()
+            whole = {kv: par.gather(cache[kv], 2, g) for kv in ("k", "v")}
+            n = int(cache["len"])
+            prefill_block = list(cache["k"].shape)
+            del cache
+        with par.use_layout(dec):
+            grown = tf.init_cache(cfg, MA_BATCH, MA_SLOTS,
+                                  cfg.compute_dtype, device=dev)
+            blk = grown["k"].shape[2]
+            axes = par.split_axes("batch", "cache_seq")
+            lo = par.line_index(mesh, axes) * blk if axes else 0
+            hi = min(lo + blk, n)
+            for kv in ("k", "v"):
+                if hi > lo:
+                    grown[kv][:, :, :hi - lo] = whole[kv][:, :, lo:hi]
+            del whole
+            grown["len"] = torch.tensor(n, dtype=torch.int32, device=dev)
+            ptrs = (grown["k"].data_ptr(), grown["v"].data_ptr())
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            dec_logits, tokens, dec_ms = [], [], []
+            for _ in range(MA_DECODE):
+                _sync(dev)
+                t0 = time.perf_counter()
+                d, grown = tf.decode_step(model, grown, nxt)
+                _sync(dev)
+                dec_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+                nxt = d[:, -1].argmax(-1, keepdim=True)
+                dec_logits.append(d.float().cpu().numpy())
+                tokens.append(nxt.cpu().numpy())
+            kept = (grown["k"].data_ptr(), grown["v"].data_ptr()) == ptrs
+    out = dict(
+        prefill_logits=logits.float().cpu().numpy(),
+        decode_logits=dec_logits,
+        tokens=tokens, storage_kept=kept, len=int(grown["len"]),
+        prefill_block=prefill_block, decode_block=list(grown["k"].shape),
+        prefill_ms=round(prefill_ms, 2), decode_ms=dec_ms,
+        peak_mb=_peak_mb(dev))
+    del model, grown
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ma_moe_cfg(capacity_factor: float | None = None):
+    """olmoe at its published widths, depth 2, fp32; capacity factor E / K
+    (no pick dropped) unless given."""
+    from repro_torch.configs import get_arch
+    full = get_arch(MOE_ARCH).config()
+    moe = full.moe
+    cf = moe.n_experts / moe.top_k if capacity_factor is None \
+        else capacity_factor
+    return dataclasses.replace(
+        full, n_layers=MOE_CHECK_DEPTH, dtype="float32",
+        moe=dataclasses.replace(moe, capacity_factor=cf))
+
+
+def _ma_grads(model, batch, torch, layout=None) -> tuple:
+    """The whole batch's loss and this rank's gradients, as the sharded
+    train step takes them (``layout``: ``batch`` is this rank's block)."""
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.tree import leaves, module_tree
+    with par.use_layout(layout):
+        loss = tf.loss_fn(model, batch)
+        whole = par.batch_sum(loss.detach())
+    grads = torch.autograd.grad(loss, leaves(module_tree(model)))
+    return float(whole), grads
+
+
+def _ma_moe_rank(rank: int, dev, mesh, cfgs: dict, batch: dict
+                 ) -> tuple[dict, list | None]:
+    """olmoe at depth 2 with the experts split over 'model' (the
+    all-to-all on each rank's chunk of the sequence), at no-drop capacity
+    (``cfgs["no_drop"]``), then at capacity 1.25 (``cfgs["cf_1.25"]``).
+    Returns the rows and, on rank 0, the no-drop run's whole gradients
+    (on the host)."""
+    import torch
+
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    rules = sh.lm_rules(mesh)
+    out, whole = {}, None
+    rows, axes = par.local_batch({k: v.to(dev) for k, v in batch.items()},
+                                 par.Layout(rules, par.batch_axes_of(rules)))
+    layout = par.Layout(rules, axes)
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(
+        MA_SEED), cfgs["no_drop"], device=dev)
+    par.shard_module(model, rules, tf.param_axes(model.cfg))
+    for name, cfg in cfgs.items():
+        set_lm_cfg(model, cfg)
+        calls, kept = [], []
+        real_a2a, real_dispatch = par.all_to_all, moe.dispatch
+
+        def a2a(x, g):
+            calls.append(tuple(x.shape))
+            return real_a2a(x, g)
+
+        def dispatch(x, gates, idx, E, C):
+            res = real_dispatch(x, gates, idx, E, C)
+            kept.append(float(res[1][3].float().mean()))
+            return res
+
+        par.all_to_all, moe.dispatch = a2a, dispatch
+        try:
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss, grads = _ma_grads(model, rows, torch, layout)
+            _sync(dev)
+            fb_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            par.all_to_all, moe.dispatch = real_a2a, real_dispatch
+        row = dict(loss=loss, a2a_calls=len(calls), kept=kept,
+                   fwd_bwd_ms=round(fb_ms, 1), peak_mb=_peak_mb(dev))
+        if name == "no_drop":
+            # collectives: both ranks gather, rank 0 keeps them
+            full = [par.full(g).cpu() for g in grads]
+            whole = full if rank == 0 else None
+            del full
+        out[name] = row
+        del grads
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, whole
+
+
+def _ma_reference(cfg, batch: dict, dev, got: list) -> dict:
+    """``cfg``'s draw on one device (no mesh) on ``batch``: its loss and
+    each gradient's largest difference to ``got`` (the mesh's, whole)
+    over its largest entry."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(
+        MA_SEED), cfg, device=dev)
+    loss, grads = _ma_grads(
+        model, {k: v.to(dev) for k, v in batch.items()}, torch)
+    errs = [float((g.cpu() - w).abs().max()) / (float(w.abs().max()) or 1.0)
+            for w, g in zip(got, grads)]
+    del model, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"ref_loss": loss, "grad_rel_err_max": max(errs),
+            "grad_rel_err": errs}
+
+
+def _ma_olmo_grads(rank: int, dev, cfg, mesh) -> dict | None:
+    """The first train step's gradients of OLMo (``cfg`` in fp32: under
+    bf16 the two chunks' partial sums round elsewhere than one device's
+    whole sum) on ``MA_BATCH`` x ``MA_SEQ``, sequence-parallel over the
+    mesh, gathered whole; rank 0 then runs one device (``_ma_reference``).
+    The losses of ``ma_run`` barely see the backward: step 0's does not,
+    and AdamW's first update is about lr * sign(g)."""
+    import torch
+
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    batch = _ma_batch(cfg.vocab, 0)
+    rules = sh.lm_rules(mesh)
+    rows, axes = par.local_batch({k: v.to(dev) for k, v in batch.items()},
+                                 par.Layout(rules, par.batch_axes_of(rules)))
+    model = tf.init_params(torch.Generator(device=dev).manual_seed(
+        MA_SEED), cfg, device=dev)
+    par.shard_module(model, rules, tf.param_axes(cfg))
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, grads = _ma_grads(model, rows, torch, par.Layout(rules, axes))
+    _sync(dev)
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    # collectives: both ranks gather, rank 0 keeps them
+    whole = [par.full(g).cpu() for g in grads]
+    del model, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    out = dict(loss=loss, leaves=len(whole), fwd_bwd_ms=round(fb_ms, 1),
+               **_ma_reference(cfg, batch, dev, whole))
+    return out
+
+
+def _ma_rank(rank: int, device_type: str, cfg, cfgs: dict,
+             batch: dict) -> dict:
+    """One rank of the (1, 2) mesh: OLMo (``ma_run``), OLMo's fp32
+    gradients (``_ma_olmo_grads``), then olmoe through the all-to-all;
+    rank 0 then runs olmoe's no-drop step on one device against the
+    gathered gradients."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(rank, device_type)
+    mesh = make_host_mesh(MA_MESH, ("data", "model"), dev.type)
+    out = {"olmo": ma_run(dev, cfg, mesh),
+           "olmo_grads": _ma_olmo_grads(rank, dev, cfg, mesh)}
+    moe, whole = _ma_moe_rank(rank, dev, mesh, cfgs, batch)
+    if rank == 0:
+        moe["no_drop"].update(_ma_reference(cfgs["no_drop"], batch, dev,
+                                            whole))
+    out["olmoe"] = moe
+    return out
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest difference over the largest entry of ``b``."""
+    return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
+
+
+def _l2_rel(a: np.ndarray, b: np.ndarray) -> float:
+    """The norm of the difference over the norm of ``b``."""
+    return float(np.linalg.norm(a - b)) / (float(np.linalg.norm(b)) or 1.0)
+
+
+def phase_model_axis(torch) -> dict:
+    """The LM's 'model' axis as ``lm_rules`` lays it, on two gloo ranks
+    that share the card, a ("data" 1, "model" 2) mesh: OLMo-1B at its
+    published widths, cut to ``MA_DEPTH`` layers (``ma_run``): two AdamW
+    steps sequence-parallel (each rank its 512 positions, K/V gathered,
+    weights gathered at use and their gradients reduce-scattered), a
+    2 x 1,024 prefill (each rank's K/V chunk its cache block, the last
+    token's logits on both), the cache regrown to ``MA_SLOTS`` slots split
+    over 'model' and four greedy decode steps (the MLP and the vocab split
+    over 'model', flash-decode over the cache's blocks, written in place).
+    Then this process runs the same on one device: the losses and the
+    prefill's logits within ``MA_RTOL`` (each logit's difference over the
+    largest), the greedy tokens equal, the decode cache's storage
+    unchanged on both; decode's logits within ``MA_RTOL`` in fp32, and in
+    bf16 within ``MA_BF16_L2`` in norm (the difference's norm over the
+    logits'): the tensor-parallel sums round bf16 elsewhere than one
+    device, so the fp32 run carries the tight decode check. The first
+    step's gradients in fp32 (``_ma_olmo_grads``), gathered whole: each
+    within ``MA_GRAD_RTOL`` of its largest entry against one device's.
+    Then olmoe at its published widths, depth 2, through the
+    expert-parallel all-to-all on each rank's chunk of the sequence (fp32,
+    2 x 128 tokens): at no-drop capacity the loss (rtol 1e-5) and every
+    gradient (``MA_GRAD_RTOL``) against one device, and at capacity 1.25
+    the kept share of picks of each source shard."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    cfgs = {"no_drop": _ma_moe_cfg(), "cf_1.25": _ma_moe_cfg(1.25)}
+    vocab = cfgs["no_drop"].vocab
+    moe_batch = _ma_batch(vocab, 0, MA_MOE_BATCH, MA_MOE_SEQ)
+    t0 = time.perf_counter()
+    olmo = _ma_cfg()
+    ranks = spawn_ranks(_ma_rank, 2, (DEVICE, olmo, cfgs, moe_batch),
+                        timeout_s=900.0)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = ma_run(torch.device(DEVICE), olmo)
+    one_s = time.perf_counter() - t0
+    bad, out_ranks = [], []
+    for r, res in enumerate(ranks):
+        got = res["olmo"]["train"]
+        loss_err = [abs(a - b) / abs(b) for a, b in
+                    zip(got["losses"], one["train"]["losses"])]
+        row = dict(rank=r, losses=got["losses"], loss_rel_err=loss_err,
+                   train_step_ms=got["step_ms"],
+                   train_peak_mb=got["peak_mb"])
+        ok = max(loss_err) <= MA_RTOL
+        for dt in MA_SERVE_DTYPES:
+            sv, want = res["olmo"]["serve"][dt], one["serve"][dt]
+            pre_err = _rel(sv["prefill_logits"], want["prefill_logits"])
+            pairs = list(zip(sv["decode_logits"], want["decode_logits"]))
+            dec_err = [_rel(a, b) for a, b in pairs]
+            dec_l2 = [_l2_rel(a, b) for a, b in pairs]
+            same_tokens = all(np.array_equal(a, b) for a, b in
+                              zip(sv["tokens"], want["tokens"]))
+            ok &= (pre_err <= MA_RTOL and same_tokens
+                   and sv["storage_kept"] and want["storage_kept"]
+                   and sv["len"] == MA_SEQ + MA_DECODE
+                   and (max(dec_l2) <= MA_BF16_L2 if dt == "bfloat16"
+                        else max(dec_err) <= MA_RTOL))
+            row[dt] = dict(
+                prefill_logit_rel_err=pre_err, decode_logit_rel_err=dec_err,
+                decode_logit_l2_rel_err=dec_l2,
+                decode_logits_differing=[float(np.mean(a != b))
+                                         for a, b in pairs],
+                greedy_tokens_equal=same_tokens,
+                decode_storage_kept=sv["storage_kept"],
+                prefill_block=sv["prefill_block"],
+                decode_block=sv["decode_block"],
+                prefill_ms=sv["prefill_ms"], decode_ms=sv["decode_ms"],
+                serve_peak_mb=sv["peak_mb"])
+        if not ok:
+            bad.append(r)
+        out_ranks.append(row)
+    if bad:
+        raise AssertionError(
+            f"model_axis: ranks {bad} against one device (rtol {MA_RTOL}, "
+            f"bf16 decode {MA_BF16_L2} in norm): {out_ranks}")
+    grads = ranks[0]["olmo_grads"]
+    if not (math.isclose(grads["loss"], grads["ref_loss"], rel_tol=1e-5)
+            and grads["grad_rel_err_max"] < MA_GRAD_RTOL):
+        raise AssertionError(f"model_axis: OLMo's fp32 gradients on the "
+                             f"mesh against one device: {grads}")
+    res = [r["olmoe"] for r in ranks]
+    nd = res[0]["no_drop"]
+    if not (all(r[k]["a2a_calls"] > 0 for r in res for k in r)
+            and math.isclose(nd["loss"], nd["ref_loss"], rel_tol=1e-5)
+            and nd["grad_rel_err_max"] < MA_GRAD_RTOL):
+        raise AssertionError(f"model_axis: the all-to-all MoE against one "
+                             f"device: {res}")
+    cfg = cfgs["no_drop"]
+    launches = launch_counts()
+    from repro_torch.configs import get_arch
+    log("model_axis", arch=MA_ARCH, depth=olmo.n_layers,
+        depth_cut=f"{olmo.n_layers} of {get_arch(MA_ARCH).config().n_layers}"
+        " layers, for time", d_model=olmo.d_model, d_ff=olmo.d_ff,
+        vocab=olmo.vocab, dtype=olmo.dtype,
+        mesh=dict(zip(("data", "model"), MA_MESH)),
+        backend="gloo", batch=MA_BATCH, seq=MA_SEQ, steps=MA_STEPS,
+        decode_steps=MA_DECODE, cache_slots=MA_SLOTS, rtol=MA_RTOL,
+        bf16_decode_l2=MA_BF16_L2,
+        ranks=out_ranks,
+        one_device=dict(losses=one["train"]["losses"],
+                        train_step_ms=one["train"]["step_ms"],
+                        train_peak_mb=one["train"]["peak_mb"],
+                        serve={dt: dict(
+                            prefill_ms=sv["prefill_ms"],
+                            decode_ms=sv["decode_ms"],
+                            serve_peak_mb=sv["peak_mb"],
+                            tokens=[t.flatten().tolist()
+                                    for t in sv["tokens"]])
+                            for dt, sv in one["serve"].items()},
+                        seconds=round(one_s, 2)),
+        olmo_fp32_grads=dict(
+            loss=grads["loss"], one_device_loss=grads["ref_loss"],
+            leaves=grads["leaves"],
+            grad_rel_err_max=grads["grad_rel_err_max"],
+            grad_rel_err=grads["grad_rel_err"],
+            tolerance=dict(loss_rtol=1e-5, grad_err_over_max=MA_GRAD_RTOL),
+            fwd_bwd_ms_rank0=grads["fwd_bwd_ms"]),
+        olmoe_a2a=dict(
+            depth=cfg.n_layers, d_model=cfg.d_model,
+            experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            batch=MA_MOE_BATCH, seq=MA_MOE_SEQ,
+            no_drop_capacity_factor=cfg.moe.capacity_factor,
+            loss=round(nd["loss"], 6), one_device_loss=round(nd["ref_loss"],
+                                                             6),
+            grad_rel_err_max=nd["grad_rel_err_max"], tolerance=dict(
+                loss_rtol=1e-5, grad_err_over_max=MA_GRAD_RTOL),
+            a2a_calls=[r["no_drop"]["a2a_calls"] for r in res],
+            fwd_bwd_ms=[r["no_drop"]["fwd_bwd_ms"] for r in res],
+            cf_1_25=dict(loss=round(res[0]["cf_1.25"]["loss"], 6),
+                         kept=[[round(k, 4) for k in r["cf_1.25"]["kept"]]
+                               for r in res],
+                         fwd_bwd_ms=[r["cf_1.25"]["fwd_bwd_ms"]
+                                     for r in res]),
+            rank_peak_mb=[r["cf_1.25"]["peak_mb"] for r in res]),
+        ranks_s=round(ranks_s, 2), launches=launches,
         seconds=round(time.perf_counter() - t_phase, 2))
     return {"launches": launches}
 
@@ -4396,6 +4755,9 @@ DR_TRAIN = {"olmo-1b": (("train_4k", "multi"), ("train_4k", "single")),
             "dlrm-mlperf": (("train_batch", "single"),
                             ("train_batch", "multi"))}
 DR_FIT_BYTES = 70e9
+# the serving cells the memory model runs on the card at their production
+# blocks (the decode cache's sequence over 'model')
+DR_SERVE = (("olmo-1b", "decode_32k", "single"),)
 # predicted peak against the card's: 10% or 512 MiB, whichever is larger
 DR_REL, DR_ABS = 0.10, 512 * 2 ** 20
 DR_RETRIEVAL = ("asc-splade", "serve_k10")
@@ -4443,6 +4805,48 @@ def production_shard(index, n: int, torch):
         getattr(index, f).clone() if f == "scale"
         else getattr(index, f)[:n].clone()) for f in INDEX_FIELDS}
     return ClusterIndex(**fields, vocab=index.vocab, n_seg=index.n_seg)
+
+
+def memory_check(meta: dict, torch) -> dict:
+    """The memory model on the card for ``meta``'s cell: built on meta and
+    sharded there, only rank 0's blocks drawn on the card, one step under
+    the production mesh's fake group; the predicted peak (meta: arguments
+    + temp) within 10% or 512 MiB of ``max_memory_allocated`` over the
+    card's allocation before, FLOPs and collectives equal to the meta
+    record's; then the step again, timed (rank 0's compute: the fake
+    collectives move nothing)."""
+    from repro_torch.launch import dryrun
+    arch, shape, mk = meta["arch"], meta["shape"], meta["mesh"]
+    gc_collect(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = _checked(dryrun.run_cell(arch, shape, mk, save=False,
+                                    device=DEVICE, repeat=DR_STEPS),
+                    f"{arch} {shape} {mk} on the card")
+    measured = torch.cuda.max_memory_allocated() - base
+    pred = _predicted(meta)
+    tol = max(DR_REL * measured, DR_ABS)
+    row = dict(arch=arch, shape=shape, mesh=mk, mode=meta["mode"],
+               predicted_bytes=pred, measured_bytes=measured,
+               rel_err=(pred - measured) / measured, tol_bytes=tol,
+               argument_bytes=meta["memory"]["argument_size_in_bytes"],
+               temp_bytes=meta["memory"]["temp_size_in_bytes"],
+               card_tracker_temp_bytes=card["memory"]["temp_size_in_bytes"],
+               flops=card["flops"],
+               rank0_compute_ms_no_communication=card["step_ms"],
+               build_s=card["build_s"])
+    if abs(pred - measured) > tol:
+        raise AssertionError(f"dryrun: {arch} {shape} {mk}: predicted "
+                             f"{pred} B, the card peaked at {measured} B: "
+                             f"{row}")
+    for key in ("flops", "collectives"):
+        if card[key] != meta[key]:
+            raise AssertionError(f"dryrun: {arch} {shape} {mk}: {key} on "
+                                 f"the card {card[key]} != meta "
+                                 f"{meta[key]}")
+    del card
+    gc_collect(torch)
+    return row
 
 
 def phase_dryrun(index, torch) -> dict:
@@ -4528,40 +4932,12 @@ def phase_dryrun(index, torch) -> dict:
         else:
             raise AssertionError(f"dryrun: no training cell of {arch} is "
                                  f"predicted under {DR_FIT_BYTES:.0f} B")
-        meta = recs[arch, shape, mk]
-        gc_collect(torch)
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        card = _checked(dryrun.run_cell(arch, shape, mk, save=False,
-                                        device=DEVICE, repeat=DR_STEPS),
-                        f"{arch} {shape} {mk} on the card")
-        measured = torch.cuda.max_memory_allocated() - base
-        pred = _predicted(meta)
-        tol = max(DR_REL * measured, DR_ABS)
-        row = dict(arch=arch, shape=shape, mesh=mk,
-                   chosen_over=[list(c) for c in cands[:cands.index(
-                       (shape, mk))]],
-                   predicted_bytes=pred, measured_bytes=measured,
-                   rel_err=(pred - measured) / measured, tol_bytes=tol,
-                   argument_bytes=meta["memory"]["argument_size_in_bytes"],
-                   temp_bytes=meta["memory"]["temp_size_in_bytes"],
-                   card_tracker_temp_bytes=card["memory"][
-                       "temp_size_in_bytes"],
-                   flops=card["flops"],
-                   rank0_compute_ms_no_communication=card["step_ms"],
-                   build_s=card["build_s"])
+        row = memory_check(recs[arch, shape, mk], torch)
+        row["chosen_over"] = [list(c) for c in cands[:cands.index(
+            (shape, mk))]]
         memory.append(row)
-        if abs(pred - measured) > tol:
-            raise AssertionError(f"dryrun: {arch} {shape} {mk}: predicted "
-                                 f"{pred} B, the card peaked at {measured} "
-                                 f"B: {row}")
-        for key in ("flops", "collectives"):
-            if card[key] != meta[key]:
-                raise AssertionError(f"dryrun: {arch} {shape} {mk}: {key} "
-                                     f"on the card {card[key]} != meta "
-                                     f"{meta[key]}")
-        del card
-        gc_collect(torch)
+    for cell in DR_SERVE:
+        memory.append(memory_check(recs[cell], torch))
 
     # (d)
     counted = {name: 0 for name in launch_counts()}
@@ -5124,6 +5500,7 @@ def main() -> int:
     later["moe"] = phase_moe(torch)
     later["train_moe"] = phase_train_moe(torch)
     later["train_sharded"] = phase_train_sharded(torch, tl)
+    later["model_axis"] = phase_model_axis(torch)
     later["examples"] = phase_examples(torch)
     later["dryrun"] = phase_dryrun(index, torch)
     finish_kernel_rows(rows, later, ra)

@@ -1,5 +1,5 @@
-"""Sharded training: parameters placed by the sharding rules, one process
-a rank.
+"""Sharded programs (training and serving): parameters placed by the
+sharding rules, one process a rank.
 
 The reference lays one program over the mesh and lets GSPMD place every
 value from the rules. The port runs one process a rank
@@ -12,24 +12,40 @@ reference's own ``shard_map`` paths do:
     ``experts`` and ``table_rows`` over 'model'. AdamW's moments are
     ``zeros_like`` of them and so take their placement; the masters stay
     in their own dtype (float32);
-  * **the batch** is split over the data axes (:func:`local_batch`; a
-    batch that does not divide them stays whole on every rank, as the
-    reference's embedding lookup falls back to a replicated id batch);
+  * **the tokens** are split as the rules lay them (:class:`Layout`):
+    the batch's rows over the data axes (:func:`local_batch`; a batch
+    that does not divide them stays whole on every rank, as the
+    reference's embedding lookup falls back to a replicated id batch),
+    and the sequence over the axes the rules give "seq" after "batch"
+    ('model' in LM training and prefill: sequence parallelism). A
+    sequence that those axes do not divide raises: a rank never runs
+    whole what the rules split;
   * **at use** a weight is cast to the compute dtype and then gathered
     over the axes it is split on (:func:`unshard`): the FSDP all-gather
     moves compute-dtype bytes, and its backward is a reduce-scatter over
-    the batch axes (a weight replicated over them has its gradient summed
-    over them). A caller may keep an axis split: the expert-parallel MoE
+    the token axes (the ranks there saw other tokens; a weight replicated
+    over them has its gradient summed over them, a norm's scale over
+    'model' too). A caller may keep an axis split: the expert-parallel MoE
     keeps 'model' (``models/moe.py``), the row-sharded lookup keeps
-    'table_rows' (``models/embedding.py``);
+    'table_rows' (``models/embedding.py``), and where the rules put a
+    feature dim on 'model' (decode: "mlp" and "vocab", as the sequence
+    leaves 'model' to them, :func:`spec_axes`) the MLP and the LM head
+    keep it and reduce or gather their products (tensor parallelism);
+  * **attention** under a sequence split is context-parallel: each rank's
+    queries at their global positions, K/V gathered over the sequence's
+    axes (:func:`gather_seq`, whose backward is a reduce-scatter); in
+    decode the KV cache's slots are split over "cache_seq"'s axes and the
+    softmax is combined over them (``models/attention.py``);
   * **losses** are shares: a rank's loss is its part of the whole
-    batch's (a mean divides by the whole batch's count, :func:`batch_sum`),
-    so the ranks' losses over the batch axes add up to the reference's,
-    and their gradients too.
+    batch's (a mean divides by every token's count, :func:`batch_sum`
+    over the token axes), so the ranks' losses add up to the
+    reference's, and their gradients too.
 
 Compute that no axis splits runs whole on every rank of that axis, with
-the same inputs, so its gradients agree there: the dense layers on
-'model' (heads, MLP, vocab), a whole graph on every rank.
+the same inputs, so its gradients agree there: the attention projections
+in decode (the rules leave "heads" whole), an MoE's experts where the
+all-to-all does not apply (gathered whole, ``models/moe.py``), a whole
+graph on every rank.
 
 Every collective is a raw ``torch.distributed`` call on this rank's plain
 tensors, in the autograd functions below. ``DTensor`` is only the
@@ -46,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 import weakref
@@ -67,8 +84,12 @@ _groups: dict[int, dict] = {}
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """How a rank's program is laid over ``rules.mesh``: the rules, and
-    the mesh axes the batch is split over (empty: every rank computes
-    the whole batch)."""
+    the mesh axes the batch's rows are split over (empty: every rank
+    computes every row). The tokens' sequence is split over the axes the
+    rules give "seq" after "batch" (:attr:`seq_axes`: 'model' in LM
+    training and prefill, none in decode), so a rank's tokens are its
+    rows' chunk of the sequence; its loss is its share over
+    :attr:`token_axes`, the batch axes and the sequence's."""
     rules: sh.ShardingRules
     batch_axes: tuple[str, ...]
 
@@ -76,11 +97,39 @@ class Layout:
     def mesh(self):
         return self.rules.mesh
 
+    @functools.cached_property
+    def seq_axes(self) -> tuple[str, ...]:
+        return spec_axes(self.rules, "batch", "seq")
+
+    @property
+    def token_axes(self) -> tuple[str, ...]:
+        return self.batch_axes + self.seq_axes
+
 
 def batch_axes_of(rules: sh.ShardingRules) -> tuple[str, ...]:
     """The mesh axes the rules put the batch on."""
     spec = rules.spec("batch")
     return sh.entry_axes(spec[0]) if len(spec) else ()
+
+
+def spec_axes(rules: sh.ShardingRules | None, *logical: str
+              ) -> tuple[str, ...]:
+    """The mesh axes the last of ``logical`` takes in the rules' spec of
+    them all (an axis goes to the first name that asks for it, as the
+    reference's specs give it), or () where they hold one rank: for
+    ("batch", "seq") the sequence's split, for ("batch", "seq", "mlp")
+    the MLP's hidden dim's (none while the sequence holds 'model'), for
+    ("batch", "cache_seq") the KV cache's."""
+    if rules is None or rules.mesh is None:
+        return ()
+    axes = sh.entry_axes(rules.spec(*logical)[-1])
+    return axes if axes_size(rules.mesh, axes) > 1 else ()
+
+
+def split_axes(*logical: str) -> tuple[str, ...]:
+    """:func:`spec_axes` under the installed layout (() without one)."""
+    layout = current_layout()
+    return spec_axes(layout.rules, *logical) if layout is not None else ()
 
 
 @contextlib.contextmanager
@@ -162,6 +211,17 @@ def axes_size(mesh, axes) -> int:
     return math.prod(sizes[a] for a in axes)
 
 
+def line_index(mesh, axes) -> int:
+    """This rank's place along ``axes`` (row-major over their coordinates,
+    in the order given): its rank in :func:`group`'s line, and the block
+    it holds of a dim split over them."""
+    sizes = sh.mesh_sizes(mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coordinate(mesh, a)
+    return idx
+
+
 # ---------------------------------------------------------------------------
 # Collectives on plain tensors
 # ---------------------------------------------------------------------------
@@ -176,14 +236,20 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous 16-bit float tensor as its bytes (the last dim
-    doubled); other dtypes as they are."""
-    return t.view(torch.uint8) if t.dtype in _WIDE else t
+    """A 16-bit float tensor as the bytes of a row-major copy (the last dim
+    doubled; ``contiguous`` leaves a size-1 last dim's stride as it is,
+    which the view refuses); other dtypes as they are, made
+    contiguous."""
+    if t.dtype not in _WIDE:
+        return t.contiguous()
+    if t.dim() and t.stride(-1) != 1:
+        t = torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+    return t.contiguous().view(torch.uint8)
 
 
 def _gather_dim(t: torch.Tensor, dim: int, g) -> torch.Tensor:
     n = dist.get_world_size(g)
-    x = _bytes(t.movedim(dim, 0).contiguous())
+    x = _bytes(t.movedim(dim, 0))
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     _all_gather(out, x, group=g)
     return out.view(t.dtype).movedim(0, dim)
@@ -212,14 +278,15 @@ def _sum(t: torch.Tensor, g) -> torch.Tensor:
 class _Unshard(torch.autograd.Function):
     """Forward: gather a weight block over the mesh dims listed in
     ``gather`` ((mesh dim, tensor dim), innermost first). Backward: over
-    each gathered dim, the batch axes' gradient is reduce-scattered and
-    the others' chunked (their ranks hold the same gradient); over
-    ``summed`` (replicated dims on batch axes) it is all-reduced."""
+    each gathered dim, the token axes' gradient is reduce-scattered (their
+    ranks computed on other tokens) and the others' chunked (their ranks
+    hold the same gradient); over ``summed`` (replicated dims on token
+    axes) it is all-reduced."""
 
     @staticmethod
-    def forward(ctx, w, mesh, gather, summed, batch):
+    def forward(ctx, w, mesh, gather, summed, tokens):
         ctx.mesh, ctx.gather, ctx.summed, ctx.batch = (mesh, gather, summed,
-                                                       batch)
+                                                       tokens)
         names = mesh.mesh_dim_names
         for i, d in gather:
             w = _gather_dim(w, d, mesh.get_group(names[i]))
@@ -247,7 +314,7 @@ def unshard(w, dtype: torch.dtype | None = None, keep=()) -> torch.Tensor:
     if not isinstance(w, DTensor):
         return w.to(dtype) if cast else w
     layout = current_layout()
-    batch = layout.batch_axes if layout is not None else ()
+    tokens = layout.token_axes if layout is not None else ()
     mesh = w.device_mesh
     names = mesh.mesh_dim_names
     rules = sh.current_rules()
@@ -262,13 +329,24 @@ def unshard(w, dtype: torch.dtype | None = None, keep=()) -> torch.Tensor:
         if isinstance(p, Shard):
             if names[i] not in kept:
                 gather.append((i, p.dim))
-        elif names[i] in batch:
+        elif names[i] in tokens:
             summed.append(i)
     # gather innermost first: a dim split over (pod, data) is pod-major
     gather.reverse()
     if not gather and not summed:
         return local
-    return _Unshard.apply(local, mesh, tuple(gather), tuple(summed), batch)
+    return _Unshard.apply(local, mesh, tuple(gather), tuple(summed), tokens)
+
+
+def split_dim_axes(w, dim: int) -> tuple[str, ...]:
+    """The mesh axes ``w`` (a ``DTensor``; a plain tensor: none) splits
+    its dim ``dim`` over, in mesh order."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(w, DTensor):
+        return ()
+    names = w.device_mesh.mesh_dim_names
+    return tuple(n for n, p in zip(names, w.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
 
 
 class _SumShares(torch.autograd.Function):
@@ -298,23 +376,9 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
-class _Split(torch.autograd.Function):
-    """This rank's chunk of ``dim`` forward, all-gather backward: a value
-    every rank of the group holds alike, split to work on."""
-
-    @staticmethod
-    def forward(ctx, x, dim, g):
-        ctx.dim, ctx.g = dim, g
-        return _chunk(x, dim, g)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _gather_dim(grad.contiguous(), ctx.dim, ctx.g), None, None
-
-
 class _Gather(torch.autograd.Function):
-    """All-gather of ``dim`` forward, this rank's chunk backward: the
-    inverse of :class:`_Split`."""
+    """All-gather of ``dim`` forward, this rank's chunk backward: a value
+    gathered for compute that every rank of the group then runs alike."""
 
     @staticmethod
     def forward(ctx, x, dim, g):
@@ -324,6 +388,23 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _chunk(grad, ctx.dim, ctx.g), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """All-gather of ``dim`` forward, reduce-scatter backward: a value split
+    over the group gathered whole for compute in which every rank's share
+    of the loss reaches every part of it (context-parallel attention's
+    K/V, the sequence before an MoE's dispatch), so each part's gradient
+    is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _gather_dim(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_sum_dim(grad, ctx.dim, ctx.g), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -341,7 +422,7 @@ class _AllToAll(torch.autograd.Function):
 
 
 def _a2a(x: torch.Tensor, g) -> torch.Tensor:
-    raw = _bytes(x.contiguous())
+    raw = _bytes(x)
     out = torch.empty_like(raw)
     dist.all_to_all_single(out, raw, group=g)
     return out.view(x.dtype)
@@ -349,10 +430,6 @@ def _a2a(x: torch.Tensor, g) -> torch.Tensor:
 
 def reduce_from(x: torch.Tensor, g) -> torch.Tensor:
     return x if g is None else _ReduceFrom.apply(x, g)
-
-
-def split(x: torch.Tensor, dim: int, g) -> torch.Tensor:
-    return x if g is None else _Split.apply(x, dim, g)
 
 
 def gather(x: torch.Tensor, dim: int, g) -> torch.Tensor:
@@ -363,23 +440,77 @@ def all_to_all(x: torch.Tensor, g) -> torch.Tensor:
     return x if g is None else _AllToAll.apply(x, g)
 
 
-def batch_group():
+def max_over(x: torch.Tensor, g) -> torch.Tensor:
+    """The elementwise maximum over the group (no gradient)."""
+    if g is None:
+        return x
+    x = x.detach().float().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The tokens' split: rows over the batch axes, the sequence over its axes
+# ---------------------------------------------------------------------------
+
+def seq_group():
+    """The group of the ranks that split this rank's sequence (None: it is
+    whole here)."""
     layout = current_layout()
-    if layout is None or not layout.batch_axes:
+    if layout is None or not layout.seq_axes:
         return None
-    return group(layout.mesh, layout.batch_axes)
+    return group(layout.mesh, layout.seq_axes)
+
+
+def seq_offset(n_local: int) -> int:
+    """Where this rank's chunk of ``n_local`` positions starts in its
+    rows' sequence (0 where the sequence is whole)."""
+    layout = current_layout()
+    if layout is None or not layout.seq_axes:
+        return 0
+    return line_index(layout.mesh, layout.seq_axes) * n_local
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's chunk of the sequence (``dim``) gathered whole over
+    the sequence's axes, every chunk's gradient reduce-scattered back
+    (:class:`_GatherSum`); ``x`` itself where the sequence is whole."""
+    g = seq_group()
+    return x if g is None else _GatherSum.apply(x, dim, g)
+
+
+def from_last_chunk(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (no gradient) as the rank holding the sequence's last chunk
+    has it, on every rank of the sequence's group (a sum in which the
+    others add zeros: exact)."""
+    g = seq_group()
+    if g is None:
+        return x
+    last = dist.get_rank(g) == dist.get_world_size(g) - 1
+    return _sum(x.detach() if last else torch.zeros_like(x), g)
+
+
+def token_group():
+    """The group of the ranks that split the tokens (None: every rank
+    holds them all)."""
+    layout = current_layout()
+    if layout is None or not layout.token_axes:
+        return None
+    return group(layout.mesh, layout.token_axes)
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (no gradient: a count) summed over the batch axes."""
-    g = batch_group()
+    """``t`` (no gradient: a count) summed over the token axes (the batch
+    axes and the sequence's)."""
+    g = token_group()
     return t if g is None else _sum(t.detach(), g)
 
 
 def batch_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean over the batch axes of each rank's ``t`` (a mean over its
-    equal slice of the batch), with the gradient of every rank's share."""
-    g = batch_group()
+    """The mean over the token axes of each rank's ``t`` (a mean over its
+    equal slice of the tokens), with the gradient of every rank's
+    share."""
+    g = token_group()
     if g is None:
         return t
     return _SumShares.apply(t, g) / dist.get_world_size(g)
@@ -387,9 +518,9 @@ def batch_mean(t: torch.Tensor) -> torch.Tensor:
 
 def batch_share(t: torch.Tensor) -> torch.Tensor:
     """This rank's share of a whole-batch mean: ``t`` over the number of
-    ranks that split the batch (``t`` a mean over this rank's equal
+    ranks that split the tokens (``t`` a mean over this rank's equal
     slice, or a whole-batch value every rank computed alike)."""
-    g = batch_group()
+    g = token_group()
     return t if g is None else t / dist.get_world_size(g)
 
 
@@ -455,24 +586,37 @@ def shard_module(model: nn.Module, rules: sh.ShardingRules,
 
 def local_batch(batch: dict, layout: Layout,
                 replicated=("negatives",)) -> tuple[dict, tuple]:
-    """This rank's rows of ``batch`` (split on dim 0 over the batch axes)
-    and the axes it was split over. Keys in ``replicated`` (shared by
-    every example, as BERT4Rec's negatives) stay whole; a batch whose
-    leading dim does not divide the axes stays whole on every rank (the
-    reference's replicated fallback), and then no axis splits it."""
+    """This rank's block of ``batch`` and the axes its rows were split
+    over: rows (dim 0) split over the batch axes, then, where the rules
+    split the sequence (``layout.seq_axes``), dim 1 of every tensor of two
+    dims or more split over those. Keys in ``replicated`` (shared by every
+    example, as BERT4Rec's negatives) stay whole; a batch whose leading
+    dim does not divide the batch axes keeps its rows whole on every rank
+    (the reference's replicated fallback), and then no axis splits them.
+    A sequence that its axes do not divide raises: the rank's program
+    would run it whole where the rules split it."""
     axes = layout.batch_axes
-    if not axes:
-        return batch, ()
-    n = axes_size(layout.mesh, axes)
+    n = axes_size(layout.mesh, axes) if axes else 1
     rows = {v.shape[0] for k, v in batch.items() if k not in replicated}
     if n == 1 or any(r % n for r in rows):
-        return batch, ()
-    idx = 0
-    for a in axes:
-        idx = idx * sh.mesh_sizes(layout.mesh)[a] + coordinate(layout.mesh,
-                                                                a)
-    out = {k: (v if k in replicated else v.chunk(n, 0)[idx])
-           for k, v in batch.items()}
+        axes = ()
+    out = dict(batch)
+    if axes:
+        idx = line_index(layout.mesh, axes)
+        out = {k: (v if k in replicated else v.chunk(n, 0)[idx])
+               for k, v in out.items()}
+    seq = layout.seq_axes
+    if seq:
+        m = axes_size(layout.mesh, seq)
+        idx = line_index(layout.mesh, seq)
+        for k, v in out.items():
+            if k in replicated or v.dim() < 2:
+                continue
+            if v.shape[1] % m:
+                raise ValueError(
+                    f"{k!r}'s sequence of {v.shape[1]} does not divide "
+                    f"over {seq} ({m} ranks), where the rules split it")
+            out[k] = v.chunk(m, 1)[idx]
     return out, axes
 
 

@@ -17,10 +17,14 @@ over several mesh axes shards in mesh-dim order, so its axes must appear
 in the mesh's order (every table here names them so).
 
 The uniform LM recipe of the reference: batch and FSDP weight sharding
-ride ("pod", "data"); FFN, vocab and experts are tensor-parallel over
-"model"; attention is context-parallel (the query sequence over "model").
+ride ("pod", "data"); the weights' FFN, vocab and expert dims are stored
+over "model". A spec gives a mesh axis to the first name that asks for
+it, so in training and prefill the sequence takes "model" (sequence
+parallelism, attention context-parallel) and the MLP's and vocab's
+activations stay whole, while decode leaves the sequence whole and they
+take "model" (tensor parallelism, the KV cache's slots over "model").
 The tables are the reference's; how the port executes a model under them
-(one process a rank, the batch split over the data axes, weights gathered
+(one process a rank, the tokens split as the specs say, weights gathered
 at use) is ``distributed/parallelize.py``'s. Nothing here runs a
 collective: the functions below only map names to placements, except
 :func:`constrain`, which redistributes a ``DTensor``.

@@ -148,13 +148,14 @@ def _gnn_geometry(spec: dict) -> tuple[int, int]:
 class Leaf:
     """One batch or cache tensor of the whole step: its shape and dtype,
     the exclusive bound of its values (ids: the table they index, a
-    float mask: 2; None: floats drawn normal, bools True, ints 0), and
-    the dim split over the batch axes (None: every rank holds it
-    whole)."""
+    float mask: 2; None: floats drawn normal, bools True, ints 0), the
+    dim split over the batch axes (None: every rank holds it whole) and
+    the dim split over the sequence's axes (None: none)."""
     shape: tuple
     dtype: torch.dtype
     high: int | None = None
     dim: int | None = 0
+    seq: int | None = None
 
 
 @dataclasses.dataclass
@@ -214,18 +215,18 @@ def _split_axes(layout_axes: tuple, mesh, rows: int) -> tuple:
     return layout_axes if n > 1 and rows % n == 0 else ()
 
 
-def make_leaves(leaves: dict, mesh, axes: tuple, device, gen
-                ) -> tuple[dict, dict]:
+def make_leaves(leaves: dict, mesh, axes: tuple, device, gen,
+                seq_axes: tuple = ()) -> tuple[dict, dict]:
     """(this rank's block of each leaf on ``device``, its NamedSharding):
-    a split leaf keeps its chunk of ``leaf.dim`` over ``axes``; the others
-    stay whole."""
-    n = par.axes_size(mesh, axes) if axes else 1
+    a split leaf keeps its chunk of ``leaf.dim`` over ``axes`` and of
+    ``leaf.seq`` over ``seq_axes``; the others stay whole."""
     out, shard = {}, {}
     for k, leaf in leaves.items():
         shape, spec = list(leaf.shape), [None] * len(leaf.shape)
-        if leaf.dim is not None and axes:
-            shape[leaf.dim] //= n
-            spec[leaf.dim] = axes if len(axes) > 1 else axes[0]
+        for d, ax in ((leaf.dim, axes), (leaf.seq, seq_axes)):
+            if d is not None and ax:
+                shape[d] //= par.axes_size(mesh, ax)
+                spec[d] = ax if len(ax) > 1 else ax[0]
         out[k] = _fill(torch.empty(shape, dtype=leaf.dtype, device=device),
                        gen, leaf.high)
         shard[k] = sh.NamedSharding(mesh, sh.P(*spec))
@@ -322,16 +323,17 @@ def _build_lm(arch: str, shape: str, mesh, multi_pod: bool) -> CellPlan:
                                           param_dtype=param_dtype),
             tf.param_axes(cfg), rules, device, gen)
 
+    seq_axes = layout.seq_axes
     if mode == "train":
         def build(device, seed: int = 0) -> Program:
             device = torch.device(device)
             gen = _gen(device, seed)
             model, p_shard = model_on(device, gen)
             batch, b_shard = make_leaves(
-                {"tokens": Leaf((B, S), I32, cfg.vocab),
-                 "labels": Leaf((B, S), I32, cfg.vocab),
-                 "mask": Leaf((B, S), F32, high=2)}, mesh, batch_axes,
-                device, gen)
+                {"tokens": Leaf((B, S), I32, cfg.vocab, seq=1),
+                 "labels": Leaf((B, S), I32, cfg.vocab, seq=1),
+                 "mask": Leaf((B, S), F32, high=2, seq=1)}, mesh,
+                batch_axes, device, gen, seq_axes)
             optimizer = opt_lib.adamw(opt_lib.cosine_schedule(3e-4, 100,
                                                               1000))
             return _train_program(model, p_shard, tf.loss_fn, optimizer,
@@ -345,32 +347,33 @@ def _build_lm(arch: str, shape: str, mesh, multi_pod: bool) -> CellPlan:
             gen = _gen(device, seed)
             model, p_shard = model_on(device, gen)
             toks, t_shard = make_leaves(
-                {"tokens": Leaf((B, S), I32, cfg.vocab)}, mesh, batch_axes,
-                device, gen)
+                {"tokens": Leaf((B, S), I32, cfg.vocab, seq=1)}, mesh,
+                batch_axes, device, gen, seq_axes)
             return Program(tf.prefill, (model, toks["tokens"]),
                            (p_shard, t_shard["tokens"]), layout)
         flops = 2.0 * n_act * B * S + 2.0 * B * S * S * h * d * L
         return CellPlan(arch, shape, mode, rules, flops, build)
 
-    # decode: one step at a full bfloat16 cache
+    # decode: one step at a full bfloat16 cache, its sequence split over
+    # the cache's axes ('model'; ("data", "model") for long_500k)
+    cache_axes = par.spec_axes(rules, "batch", "cache_seq")
+
     def build(device, seed: int = 0) -> Program:
         device = torch.device(device)
         gen = _gen(device, seed)
         model, p_shard = model_on(device, gen)
-        kv = Leaf((L, B, S, cfg.n_kv_heads, d), BF16, dim=1)
+        kv = Leaf((L, B, S, cfg.n_kv_heads, d), BF16, dim=1, seq=2)
         cache, c_shard = make_leaves(
-            {"k": kv, "v": kv, "len": Leaf((), I32, dim=None),
-             "tokens": Leaf((B, 1), I32, cfg.vocab)},
-            mesh, batch_axes, device, gen)
-        toks, t_shard = cache.pop("tokens"), c_shard.pop("tokens")
-        return Program(tf.decode_step, (model, cache, toks),
-                       (p_shard, c_shard, t_shard), layout)
+            {"k": kv, "v": kv, "len": Leaf((), I32, dim=None)}, mesh,
+            batch_axes, device, gen, cache_axes)
+        toks, t_shard = make_leaves(
+            {"tokens": Leaf((B, 1), I32, cfg.vocab)}, mesh, batch_axes,
+            device, gen)
+        return Program(tf.decode_step, (model, cache, toks["tokens"]),
+                       (p_shard, c_shard, t_shard["tokens"]), layout)
     flops = 2.0 * n_act * B + 4.0 * B * S * cfg.n_kv_heads * d * (
         cfg.n_heads // cfg.n_kv_heads) * L
-    return CellPlan(arch, shape, mode, rules, flops, build,
-                    notes="KV cache split over the batch axes only (the "
-                          "reference also splits its sequence over "
-                          "'model'; the port's decode does not)")
+    return CellPlan(arch, shape, mode, rules, flops, build)
 
 
 # ===========================================================================

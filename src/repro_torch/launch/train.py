@@ -12,6 +12,8 @@ printed lines are the reference's, plus:
 
   --device D        cuda (default) or cpu. With cuda and no card the
                     launcher exits with an error.
+  --layers N        cut the preset's depth to N layers (an LM or the
+                    graph), its widths kept.
   --metrics-json P  write the run's history, parameter counts (an LM's
                     active count too), the examples (LM: tokens) a step
                     and (on the card) peak memory to P as JSON.
@@ -21,8 +23,11 @@ printed lines are the reference's, plus:
 ("data", "model") mesh ((2, 1) for 2, (4, 1) for 4, (4, 2) for 8) under
 the family's rules (``lm_rules``, ``gnn_rules``, ``recsys_rules``):
 FSDP over "data", the 'model' placements of the rules, the batch split
-over "data" (a graph runs whole on every rank);
-``distributed/parallelize.py``. Each rank sits on ``cuda:(rank mod
+over "data" and, for an LM, the sequence over 'model' (sequence
+parallelism: each 'model' rank trains on its chunk of every row, with
+context-parallel attention; a graph runs whole on every rank);
+``distributed/parallelize.py``. A sequence that 'model' does not divide
+is refused. Each rank sits on ``cuda:(rank mod
 cards)`` (or the CPU with ``--device cpu``); ranks talk over gloo where
 they share a card or run on the CPU, over nccl where each owns a card.
 Rank 0 prints the reference's lines; the metrics file adds the mesh and
@@ -37,6 +42,7 @@ nothing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -58,6 +64,9 @@ def _parse(argv=None):
                     help="int8+EF gradient compression (fit passes no "
                          "group, so it changes nothing, as in the "
                          "reference)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the preset's depth to N layers (an LM or the "
+                         "graph; 0 = the preset's)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--metrics-json", default="",
                     help="write the run's history and sizes here")
@@ -145,6 +154,11 @@ def _train(args, kind: str, device, mesh=None, rank: int = 0):
 
     mod = get_arch(args.arch)
     cfg = mod.smoke_config() if args.preset == "smoke" else mod.config()
+    if args.layers:
+        if kind not in ("lm", "gnn"):
+            raise SystemExit(f"[train] --layers cuts an LM's or the graph's "
+                             f"depth; {args.arch} has none")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator().manual_seed(0)
 
     if kind == "lm":

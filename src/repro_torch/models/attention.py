@@ -8,13 +8,18 @@ attention in plain array code, outside any Pallas kernel, so the port's
 is plain tensor code too: the online softmax over KV chunks never forms
 the (S_q x S_kv) score matrix of a long sequence. ``attn_axes`` and the
 ``constrain`` calls are the reference's (``distributed/sharding.py``):
-heads stay replicated, the query sequence goes over 'model'.
+heads stay replicated, the query sequence goes over 'model'. Under a
+layout (``distributed/parallelize.py``) training and prefill attend
+context-parallel (each rank's queries, every rank's K/V), and decode
+attends to this rank's block of the cache, combining the softmax over
+the blocks.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import parallelize as par
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        norm_init)
@@ -116,18 +121,44 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 def attend_train(params, x: torch.Tensor, *, qk_norm: bool,
                  rope_theta: float, chunk: int = 512,
                  causal: bool = True) -> torch.Tensor:
-    """Full self-attention for train / prefill. x: (B, S, D). No padding
-    mask enters here, as in the reference."""
+    """Full self-attention for train / prefill. x: (B, S, D), this rank's
+    chunk of the sequence where the layout splits it (context
+    parallelism: queries at their global positions, K/V gathered whole,
+    :func:`parallelize.gather_seq`). No padding mask enters here, as in
+    the reference."""
+    q, k, v = project_chunk(params, x, qk_norm, rope_theta)
+    k, v = par.gather_seq(k), par.gather_seq(v)
+    out = chunked_causal_attention(q, k, v, chunk=chunk, causal=causal,
+                                   q_offset=par.seq_offset(x.shape[1]))
+    out = torch.einsum("bsgph,gphd->bsd", out, params["wo"])
+    return constrain(out, "batch", "seq", "embed")
+
+
+def project_chunk(params, x: torch.Tensor, qk_norm: bool,
+                  rope_theta: float):
+    """q, k, v of this rank's chunk x (B, S, D) of the sequence, rotated at
+    their global positions; ``constrain``'d as the reference's (queries
+    over 'model', K/V replicated for attention)."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    start = par.seq_offset(S)
+    positions = (torch.arange(S, device=x.device) + start).expand(B, S)
     q, k, v = _project_qkv(params, x, positions, qk_norm, rope_theta)
-    # context parallelism: queries sharded over 'model', KV replicated
     q = constrain(q, "batch", "seq_q", "kv_heads", "heads", "head_dim")
     k = constrain(k, "batch", "seq_kv", "kv_heads", "head_dim")
     v = constrain(v, "batch", "seq_kv", "kv_heads", "head_dim")
-    out = chunked_causal_attention(q, k, v, chunk=chunk, causal=causal)
-    out = torch.einsum("bsgph,gphd->bsd", out, params["wo"])
-    return constrain(out, "batch", "seq", "embed")
+    return q, k, v
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor,
+               slot: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` in place where ``0 <= slot < S`` (a 0-dim
+    tensor; no host sync), else nothing: the reference's masked write,
+    one slot wide. cache (B, S, G, H), new (B, 1, G, H)."""
+    S = cache.shape[1]
+    at = torch.clamp(slot, 0, S - 1).reshape(1).long()
+    inside = (slot >= 0) & (slot < S)
+    cache.index_copy_(1, at, torch.where(inside, new.to(cache.dtype),
+                                         cache.index_select(1, at)))
 
 
 def attend_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -135,23 +166,41 @@ def attend_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
                   rope_theta: float):
     """One-token decode against a KV cache.
 
-    x: (B, 1, D); cache_k/v: (B, S_max, G, H); ``cur_len`` the slot the
-    token is written to (an int or a 0-dim tensor). Returns (out (B, 1, D),
-    new cache_k, new cache_v); the caches are new tensors, as the
-    reference's masked write returns them."""
-    B = x.shape[0]
-    S_max = cache_k.shape[1]
+    x: (B, 1, D); cache_k/v: (B, S_blk, G, H), this rank's block of the
+    cache where the layout splits its sequence ("cache_seq"), else the
+    whole cache; ``cur_len`` the global slot the token is written to (an
+    int or a 0-dim tensor). The token's K/V are written in place, into
+    the block that holds the slot (:func:`write_slot`). A split cache is
+    attended flash-decode style: each rank's (max, sum, weighted V) over
+    its block, one all-reduce of the per-rank maxima (B x heads floats),
+    then one of the sums and weighted values scaled by the global
+    maximum. Returns (out (B, 1, D), cache_k, cache_v): the caches are
+    the tensors passed in."""
+    B, S_blk = x.shape[0], cache_k.shape[1]
+    axes = par.split_axes("batch", "cache_seq")
+    g, start = None, 0
+    if axes:
+        mesh = par.current_layout().mesh
+        g, start = par.group(mesh, axes), par.line_index(mesh, axes) * S_blk
     cur = torch.as_tensor(cur_len, device=x.device)
     positions = cur.expand(B, 1).to(torch.int32)
     q, k, v = _project_qkv(params, x, positions, qk_norm, rope_theta)
-    slot = (torch.arange(S_max, device=x.device) == cur)[None, :, None, None]
-    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
-    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    write_slot(cache_k, k, cur - start)
+    write_slot(cache_v, v, cur - start)
     qf = q.float() * (q.shape[-1] ** -0.5)
     s = torch.einsum("bsgph,bcgh->bsgpc", qf, cache_k.float())
-    valid = torch.arange(S_max, device=x.device)[None, :] <= cur
+    valid = torch.arange(S_blk, device=x.device)[None, :] + start <= cur
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bsgpc,bcgh->bsgph", p, cache_v.float())
+    if g is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bsgpc,bcgh->bsgph", p, cache_v.float())
+    else:
+        m = par.max_over(s.amax(-1), g)
+        p = torch.exp(s - m[..., None])
+        acc = torch.cat([torch.einsum("bsgpc,bcgh->bsgph", p,
+                                      cache_v.float()),
+                         p.sum(-1)[..., None]], -1)
+        acc = par.reduce_from(acc, g)
+        out = acc[..., :-1] / acc[..., -1:]
     out = torch.einsum("bsgph,gphd->bsd", out.to(x.dtype), params["wo"])
     return out, cache_k, cache_v

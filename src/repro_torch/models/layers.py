@@ -13,9 +13,10 @@ RoPE rotates the two halves of the head dim (not interleaved pairs).
 
 ``mlp_axes`` and the ``constrain`` calls are the reference's
 (``distributed/sharding.py``; the identity without a mesh). Under a
-batch split (``distributed/parallelize.py``) the loss's mean divides by
-the whole batch's count, summed over the ranks that split it, so the
-ranks' losses add up to the reference's.
+split of the tokens (``distributed/parallelize.py``) the loss's mean
+divides by the whole batch's count, summed over the ranks that split
+it, so the ranks' losses add up to the reference's; the MLP is
+tensor-parallel where the rules put its hidden dim on a mesh axis.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import parallelize as par
 from repro_torch.distributed.parallelize import batch_share, batch_sum, \
     unshard
 from repro_torch.distributed.sharding import constrain
@@ -195,14 +197,33 @@ def mlp_axes(act: str) -> dict:
 
 
 def apply_mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    up = constrain(x @ unshard(params["w_up"]), "batch", "seq", "mlp")
+    """The MLP as the rules lay it, its float32 weights cast to x's dtype
+    at use. Where the rules put its hidden dim ("mlp") on mesh axes
+    (decode: the sequence leaves 'model' to it), ``w_up`` and ``w_gate``
+    stay split by column and ``w_down`` by row there, and the product is
+    all-reduced over them; elsewhere (training and prefill, where the
+    sequence holds 'model') each weight is gathered whole at use and x is
+    this rank's chunk of the sequence."""
+    tp = tuple(a for a in par.split_axes("batch", "seq", "mlp")
+               if a in par.split_dim_axes(params["w_down"], 0))
+    up = constrain(x @ unshard(params["w_up"], x.dtype, keep=tp), "batch",
+                   "seq", "mlp")
     if act == "swiglu":
-        h = F.silu(x @ unshard(params["w_gate"])) * up
+        h = F.silu(x @ unshard(params["w_gate"], x.dtype, keep=tp)) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown act {act!r}")
-    return constrain(h @ unshard(params["w_down"]), "batch", "seq", "embed")
+    w_down = unshard(params["w_down"], x.dtype, keep=tp)
+    if tp:
+        # each rank's partial product in float32, rounded once after the
+        # sum, as one device rounds its float32-accumulated product
+        out = par.reduce_from(h.float() @ w_down.float(),
+                              par.group(par.current_layout().mesh, tp))
+        out = out.to(x.dtype)
+    else:
+        out = h @ w_down
+    return constrain(out, "batch", "seq", "embed")
 
 
 def mlp_stack_init(gen: torch.Generator, dims: list[int],

@@ -39,16 +39,19 @@ Sharded (``distributed/parallelize.py``): ``moe_axes`` puts the experts
 over 'model' and their input dim over the data axes. Where the reference
 takes its expert-parallel all-to-all (``_a2a_path_available`` and
 ``_moe_weight_dims_divide``), so does the port (``_apply_moe_a2a``):
-each 'model' rank routes its slice of the sequence, capacity-sorts it for
-every expert (``dispatch``, one group, capacity per source shard), sends
-each expert's slots to its owner (``all_to_all_single`` over 'model'),
-runs its local experts on what it receives (their weights cast to the
-compute dtype, then gathered over the data axes), sends the outputs back
-and combines them; the sequence is then gathered whole again. Otherwise
-the experts are gathered whole and the single-device path runs. The aux
-loss is the whole batch's (its frequencies and mean probabilities
-averaged over the ranks that split the batch), each rank holding its
-share.
+each 'model' rank routes its chunk of the sequence (the layout splits
+the sequence over 'model'), capacity-sorts it for every expert
+(``dispatch``, one group, capacity per source shard), sends each
+expert's slots to its owner (``all_to_all_single`` over 'model'), runs
+its local experts on what it receives (their weights cast to the compute
+dtype, then gathered over the data axes), sends the outputs back and
+combines them for its own tokens. Otherwise the sequence is gathered
+whole (its gradient reduce-scattered back), the experts are gathered
+whole and the single-device path runs on every rank, each keeping its
+chunk of the output. The shared experts run on the rank's chunk, as
+``apply_mlp`` runs the dense MLP. The aux loss is the whole batch's (its
+frequencies and mean probabilities averaged over the ranks that split
+the tokens), each rank holding its share.
 """
 
 from __future__ import annotations
@@ -233,30 +236,25 @@ def _apply_moe_a2a(params, x: torch.Tensor, gates: torch.Tensor,
                    idx: torch.Tensor, cfg: MoEConfig,
                    act: str) -> torch.Tensor:
     """Expert parallelism over 'model' with two all-to-alls (the
-    reference's ``shard_map`` body, on this rank's rows).
+    reference's ``shard_map`` body, on this rank's tokens).
 
-    x (B_l, S, D) is this rank's rows, whole on every 'model' rank; each
-    'model' rank takes its slice of the sequence (the gradient of the
-    slice is gathered back), capacity-sorts its T tokens for all E
-    experts with capacity ``max(1, int(T * K / E * cf))`` per source
-    shard, exchanges the (E, C, D) slots destination-major, runs its
-    E / mp experts on the (mp * C) slots each received, exchanges the
-    outputs back, combines them, and gathers the sequence whole."""
+    x (B_l, S_l, D) is this rank's rows and its chunk of their sequence
+    (the layout splits the sequence over 'model'). The rank capacity-sorts
+    its T tokens for all E experts with capacity ``max(1, int(T * K / E *
+    cf))`` per source shard, exchanges the (E, C, D) slots
+    destination-major, runs its E / mp experts on the (mp * C) slots each
+    received, exchanges the outputs back and combines them for its own
+    tokens."""
     mesh = current_rules().mesh
     _, mp = _data_model_sizes(mesh)
     g = par.group(mesh, "model")
-    at = par.coordinate(mesh, "model")
     E, K = cfg.n_experts, cfg.top_k
     e_local = E // mp
-    Bl, S, D = x.shape
-    xl = par.split(x, 1, g)
-    gl = par.split(gates, 1, g)
-    il = idx.chunk(mp, 1)[at]
-    Sl = S // mp
+    Bl, Sl, D = x.shape
     T = Bl * Sl
     C = max(1, int(T * K / E * cfg.capacity_factor))
-    send, info = dispatch(xl.reshape(1, T, D), gl.reshape(1, T, K),
-                          il.reshape(1, T, K), E, C)
+    send, info = dispatch(x.reshape(1, T, D), gates.reshape(1, T, K),
+                          idx.reshape(1, T, K), E, C)
     # (E, C, D) is destination-major: expert e lives on rank e // e_local
     recv = par.all_to_all(send.reshape(E * C, D), g)
     # grouped by source rank: (src, e_local, C, D) -> (e_local, src * C, D)
@@ -274,32 +272,42 @@ def _apply_moe_a2a(params, x: torch.Tensor, gates: torch.Tensor,
     eo = eo.reshape(e_local, mp, C, D).transpose(0, 1).reshape(
         mp * e_local * C, D)
     back = par.all_to_all(eo, g).reshape(1, E, C, D)
-    out = combine(back, info, T).reshape(Bl, Sl, D)
-    return par.gather(out, 1, g)
+    return combine(back, info, T).reshape(Bl, Sl, D)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: MoEConfig,
               act: str) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss). Groups = sequences. Sharded, x is
-    this rank's rows and the aux loss this rank's share."""
-    B, S, D = x.shape
+    this rank's rows and chunk of their sequence, the output the same
+    block, and the aux loss this rank's share of the whole batch's."""
     E, K = cfg.n_experts, cfg.top_k
-    C = max(1, int(S * K / E * cfg.capacity_factor))
     layout = par.current_layout()
-    n_split = (par.axes_size(layout.mesh, layout.batch_axes)
-               if layout is not None else 1)
-    use_a2a = _a2a_path_available(cfg, B * n_split, S)
-    if use_a2a:
-        use_a2a = _moe_weight_dims_divide(params, current_rules().mesh)
+    rows = (par.axes_size(layout.mesh, layout.batch_axes)
+            if layout is not None and layout.batch_axes else 1)
+    seq = layout.seq_axes if layout is not None else ()
+    n_seq = par.axes_size(layout.mesh, seq) if seq else 1
+    use_a2a = (_a2a_path_available(cfg, x.shape[0] * rows,
+                                   x.shape[1] * n_seq)
+               and seq == ("model",)
+               and _moe_weight_dims_divide(params, current_rules().mesh))
+    xs = x
     if not use_a2a:
-        x = constrain(x, "batch", "seq_kv", "embed")
-    probs, gates, idx = route(params, x, cfg)
+        # the dispatch's sorts span a whole sequence: gather it first
+        # (the reference's batch-only reshard)
+        xs = constrain(par.gather_seq(x), "batch", "seq_kv", "embed")
+    B, S, D = xs.shape
+    probs, gates, idx = route(params, xs, cfg)
     if use_a2a:
-        out = _apply_moe_a2a(params, x, gates.to(x.dtype), idx, cfg, act)
+        out = _apply_moe_a2a(params, xs, gates.to(x.dtype), idx, cfg, act)
     else:
-        expert_in, info = dispatch(x, gates.to(x.dtype), idx, E, C)
+        C = max(1, int(S * K / E * cfg.capacity_factor))
+        expert_in, info = dispatch(xs, gates.to(x.dtype), idx, E, C)
         out = combine(_expert_ffn(_experts(params, x.dtype), expert_in,
                                   act), info, S)
+        if seq:
+            # this rank's chunk (the others' gradient is zero here; the
+            # gather sums every rank's back)
+            out = out.narrow(1, par.seq_offset(x.shape[1]), x.shape[1])
     if cfg.n_shared:
         out = out + apply_mlp(params["shared"], x, act)
     # Switch load-balance loss: E * sum_e f_e * p_e, over the whole batch

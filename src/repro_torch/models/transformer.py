@@ -24,8 +24,17 @@ reference's stacked layout (a leading "layers" axis), which
 On a sharded model the use-site cast is where FSDP gathers: each float32
 master block is cast to the compute dtype, then gathered
 (``parallelize.unshard``), as the reference's ``_cast_params`` casts and
-then constrains. The experts stay split for the MoE's expert-parallel
-path (``models/moe.py`` gathers them itself).
+then constrains. The MLP's and the experts' weights are left to
+``apply_mlp`` and ``models/moe.py``, which keep them split where the
+rules split their compute.
+
+Under a layout the program splits its compute over 'model' where
+``lm_rules`` does: training and prefill take each rank's chunk of the
+sequence from the lookup on (sequence parallelism; attention
+context-parallel; the logits and the loss the chunk's), and decode
+splits the MLP, the vocab (lookup and head) and the KV cache's slots over
+'model' (``long_context``: over ("data", "model")), writing the cache in
+place.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import parallelize as par
 from repro_torch.distributed.parallelize import in_context, unshard
 from repro_torch.distributed.sharding import constrain, map_axes
 from repro_torch.models import attention as attn
@@ -181,9 +191,15 @@ class DecoderLayer(nn.Module):
         self.add_module(self.ffn_name, ParamTree(p[self.ffn_name]))
 
     def cast(self) -> dict:
+        """The layer's weights for compute: cast and gathered, but for the
+        MLP's and the experts', which ``apply_mlp`` and ``apply_moe`` cast
+        and gather as the rules lay their compute."""
         dt = self.cfg.compute_dtype
+        ffn = getattr(self, self.ffn_name)
+        keep = (moe_lib.EXPERT_KEYS + ("shared",) if self.cfg.moe
+                else tuple(k for k, _ in ffn.items()))
         return {k: _cast(getattr(self, k), dt,
-                         moe_lib.EXPERT_KEYS if k == "moe" else ())
+                         keep if k == self.ffn_name else ())
                 for k in ("ln1", "ln2", "attn", self.ffn_name)}
 
     def ffn(self, lp: dict, h: torch.Tensor
@@ -227,18 +243,47 @@ class TransformerLM(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def _vocab_split(self, w, dim: int) -> tuple[str, ...]:
+        """The mesh axes ``w``'s vocab dim ``dim`` stays split over at use:
+        where the rules put the logits' "vocab" (decode: 'model', as the
+        sequence leaves it) and ``w`` is split there."""
+        return tuple(a for a in par.split_axes("batch", "seq", "vocab")
+                     if a in par.split_dim_axes(w, dim))
+
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens -> rows of the embedding, in the compute dtype. Where the
+        vocab stays split (:meth:`_vocab_split`), each rank takes the ids
+        its block of rows holds and an all-reduce over the vocab's axes
+        assembles the rows (the others add zeros: exact)."""
         dt = self.cfg.compute_dtype
-        x = unshard(self.embed, dt).to(dt)[tokens]
+        tp = self._vocab_split(self.embed, 0)
+        if not tp:
+            x = unshard(self.embed, dt).to(dt)[tokens]
+        else:
+            mesh = par.current_layout().mesh
+            w = unshard(self.embed, dt, keep=tp).to(dt)
+            n = w.shape[0]
+            ids = tokens.long() - par.line_index(mesh, tp) * n
+            inside = ((ids >= 0) & (ids < n))[..., None]
+            x = torch.where(inside, w[torch.clamp(ids, 0, n - 1)], 0)
+            x = par.reduce_from(x, par.group(mesh, tp))
         return constrain(x, "batch", "seq", "embed")
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and the LM head: (..., D) -> (..., V) logits."""
+        """Final norm and the LM head: (..., D) -> (..., V) logits. Where
+        the vocab stays split, each rank computes its block's logits and an
+        all-gather returns every block's."""
         dt = self.cfg.compute_dtype
         x = apply_norm(_cast(self.final_norm, dt), x, self.cfg.norm)
-        w = (unshard(self.embed, dt).T if self.cfg.tie_embeddings
-             else unshard(self.lm_head, dt))
-        return constrain(x @ w.to(dt), "batch", "seq", "vocab")
+        w, dim = ((self.embed, 0) if self.cfg.tie_embeddings
+                  else (self.lm_head, 1))
+        tp = self._vocab_split(w, dim)
+        w = unshard(w, dt, keep=tp)
+        logits = x @ (w.T if dim == 0 else w).to(dt)
+        if tp:
+            logits = par.gather(logits, logits.dim() - 1,
+                                par.group(par.current_layout().mesh, tp))
+        return constrain(logits, "batch", "seq", "vocab")
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig,
@@ -292,7 +337,9 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
 def forward(model: TransformerLM, tokens: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), aux_loss summed over the
-    layers)."""
+    layers). Under a layout that splits the sequence, tokens are this
+    rank's chunk of its rows' sequence (``parallelize.local_batch``) and
+    the logits the chunk's."""
     x = model.embed_tokens(tokens.to(model.device))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
@@ -316,32 +363,49 @@ def prefill(model: TransformerLM, tokens: torch.Tensor,
             cache_dtype: torch.dtype = torch.bfloat16
             ) -> tuple[torch.Tensor, dict]:
     """Serving prefill: run the full sequence, emit the KV cache and the
-    *last-token* logits only."""
+    *last-token* logits only.
+
+    Under a layout that splits the sequence, tokens are this rank's chunk
+    of its rows' sequence: its K/V chunk is its block of the cache (the
+    rules split "cache_seq" over the sequence's axes in prefill too; a
+    layout that splits them otherwise raises), attention is
+    context-parallel, and the last token's logits, computed from the last
+    chunk's rank's hidden state, are every rank's. ``len`` is the whole
+    sequence's."""
     cfg = model.cfg
     tokens = tokens.to(model.device)
     B, S = tokens.shape
+    seq = par.split_axes("batch", "seq")
+    if par.split_axes("batch", "cache_seq") != seq:
+        raise ValueError(
+            f"prefill keeps each rank's K/V chunk as its cache block: the "
+            f"rules split the sequence over {seq} and the cache over "
+            f"{par.split_axes('batch', 'cache_seq')}")
     x = model.embed_tokens(tokens)
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    ks, vs = [], []
-    for layer in model.layers:
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.empty(shape, dtype=cache_dtype, device=x.device)
+    vs = torch.empty(shape, dtype=cache_dtype, device=x.device)
+    for i, layer in enumerate(model.layers):
         lp = layer.cast()
         h = apply_norm(lp["ln1"], x, cfg.norm)
-        q, k, v = attn._project_qkv(lp["attn"], h, positions, cfg.qk_norm,
-                                    cfg.rope_theta)
-        q = constrain(q, "batch", "seq_q", "kv_heads", "heads", "head_dim")
-        k = constrain(k, "batch", "cache_seq", "kv_heads", "head_dim")
-        v = constrain(v, "batch", "cache_seq", "kv_heads", "head_dim")
-        o = attn.chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk)
+        q, k, v = attn.project_chunk(lp["attn"], h, cfg.qk_norm,
+                                     cfg.rope_theta)
+        ks[i].copy_(constrain(k, "batch", "cache_seq", "kv_heads",
+                              "head_dim"))
+        vs[i].copy_(constrain(v, "batch", "cache_seq", "kv_heads",
+                              "head_dim"))
+        o = attn.chunked_causal_attention(
+            q, par.gather_seq(k), par.gather_seq(v), chunk=cfg.attn_chunk,
+            q_offset=par.seq_offset(S))
         o = torch.einsum("bsgph,gphd->bsd", o, lp["attn"]["wo"])
         x = x + constrain(o, "batch", "seq", "embed")
         x = constrain(x + layer.ffn(lp, apply_norm(lp["ln2"], x,
                                                    cfg.norm))[0],
                       "batch", "seq", "embed")
-        ks.append(k.to(cache_dtype))
-        vs.append(v.to(cache_dtype))
-    logits = model.head(x[:, -1:, :])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    logits = model.head(par.from_last_chunk(x[:, -1:, :]))
+    n = S * (par.axes_size(par.current_layout().mesh, seq) if seq else 1)
+    cache = {"k": ks, "v": vs,
+             "len": torch.tensor(n, dtype=torch.int32, device=x.device)}
     return logits, cache
 
 
@@ -352,7 +416,23 @@ def prefill(model: TransformerLM, tokens: torch.Tensor,
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device | None = None) -> dict:
+    """An empty cache of ``batch`` rows and ``max_seq`` slots; under a
+    layout, this rank's block of it: its rows over the batch axes and its
+    chunk of the slots over the cache's ("cache_seq"), each of which must
+    divide."""
     dev = resolve_device(device)
+    layout = par.current_layout()
+    if layout is not None:
+        blocks = []
+        for what, n, axes in (
+                ("rows", batch, layout.batch_axes),
+                ("slots", max_seq, par.split_axes("batch", "cache_seq"))):
+            m = par.axes_size(layout.mesh, axes) if axes else 1
+            if n % m:
+                raise ValueError(f"the cache's {n} {what} do not divide "
+                                 f"over {axes} ({m} ranks)")
+            blocks.append(n // m)
+        batch, max_seq = blocks
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -361,21 +441,23 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 def decode_step(model: TransformerLM, cache: dict, tokens: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step. tokens (B, 1) -> (logits (B, 1, V), new cache)."""
+    """One decode step. tokens (B, 1) -> (logits (B, 1, V), cache): the
+    token's K/V are written into ``cache``'s tensors in place, and the
+    cache returned holds those tensors and ``len`` + 1 (no new cache is
+    built). Under a layout, tokens are this rank's rows and the cache its
+    block (:func:`init_cache`); the MLP and the vocab are split over
+    'model' (``apply_mlp``, :meth:`TransformerLM.head`), and the logits
+    are every vocab block's."""
     cfg = model.cfg
     x = model.embed_tokens(tokens.to(model.device))
     cur = cache["len"]
-    new_k, new_v = [], []
     for layer, ck, cv in zip(model.layers, cache["k"], cache["v"]):
         lp = layer.cast()
         h = apply_norm(lp["ln1"], x, cfg.norm)
-        a, ck, cv = attn.attend_decode(lp["attn"], h, ck, cv, cur,
-                                       qk_norm=cfg.qk_norm,
-                                       rope_theta=cfg.rope_theta)
+        a, _, _ = attn.attend_decode(lp["attn"], h, ck, cv, cur,
+                                     qk_norm=cfg.qk_norm,
+                                     rope_theta=cfg.rope_theta)
         x = x + a
         x = x + layer.ffn(lp, apply_norm(lp["ln2"], x, cfg.norm))[0]
-        new_k.append(ck)
-        new_v.append(cv)
     logits = model.head(x)
-    return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v),
-                    "len": cur + 1}
+    return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

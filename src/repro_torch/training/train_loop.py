@@ -15,9 +15,11 @@ same batch sequence).
 
 Sharded training (``layout``, a ``distributed.parallelize.Layout``): the
 model's parameters are ``DTensor``s (``parallelize.shard_module``), every
-rank runs the step on its rows of the batch under the layout's rules, and
-its loss is its share of the whole batch's. The step reports the whole
-batch's loss (the shares summed over the batch axes), clips by the norm
+rank runs the step on its block of the batch under the layout's rules
+(its rows, and its chunk of their sequence where the rules split it:
+``parallelize.local_batch``), and its loss is its share of the whole
+batch's. The step reports the whole batch's loss (the shares summed
+over the token axes), clips by the norm
 of the whole gradients (from the blocks, one all-reduce) and updates each
 rank's blocks in place; AdamW's moments are blocks of the same
 placements. Checkpoints hold whole tensors, written by rank 0.
@@ -59,8 +61,8 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
     ``torch.distributed.group.WORLD``) turns on ``compressed_mean`` when
     ``cfg.grad_compression`` is set; ``None`` leaves it off. ``layout``
     runs the sharded step (every rank calls it with the whole batch, or
-    with its own rows, split over ``layout.batch_axes``, when
-    ``batch_is_local``)."""
+    with its own block, split as ``parallelize.local_batch`` splits it,
+    when ``batch_is_local``)."""
     compress = cfg.grad_compression and compression_group is not None
     if layout is not None:
         return _sharded_step(loss_fn, optimizer, cfg, layout,

@@ -8,11 +8,13 @@ live-bytes tracker must give the same peak on the meta device as on real
 CPU tensors. Then ``run_cell`` at full production shapes on meta, rank 0
 of a 256- or 512-rank fake group, for one cell of each family: status
 ok, ``argument_size_in_bytes`` equal to rank 0's blocks worked out here
-from ``shard_with_shapes`` and the batch's split, the LM training cell's
-FLOPs within [1.2, 1.5] of its data rank's share of MODEL_FLOPS (the
-remat recompute and the attention chunks), and its FSDP all-gather and
-reduce-scatter bytes equal to a count from the blocks' shapes. Then the
-CLI's lines and record keys, the example's lines, and
+from ``shard_with_shapes`` and the batch's split (rows over "data", the
+sequence over 'model'), the LM training cell's FLOPs within [1.2, 1.5]
+of its rank's share of MODEL_FLOPS (the remat recompute and the
+attention chunks), its FSDP all-gather and reduce-scatter bytes and its
+K/V gathers equal to a count from the blocks' shapes, and the decode
+cells' cache blocks as ``cache_axes()`` under the rules give them. Then
+the CLI's lines and record keys, the example's lines, and
 ``parallelize.group`` on two meshes built in turn.
 """
 
@@ -158,13 +160,15 @@ def test_run_cell_lm_train_record(olmo_train):
             lambda g, d: tf.init_params(g, cfg, device=d)), rules,
             tf.param_axes(cfg))
     params = sum(_nbytes(s, d) for s, d in blocks)
-    # AdamW's two float32 moments; the batch's 256 rows over 16 'data'
-    batch = 3 * 16 * 4096 * 4
+    # AdamW's two float32 moments; the batch's 256 rows over 16 'data',
+    # its 4,096 positions over 16 'model'
+    batch = 3 * 16 * 256 * 4
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == 3 * params + batch
     assert mem["alias_size_in_bytes"] == params
     assert mem["temp_size_in_bytes"] > 0
-    share = rec["model_flops"] / 16
+    # every rank's share: the sequence split leaves no compute repeated
+    share = rec["model_flops"] / 256
     assert 1.2 <= rec["flops"] / share <= 1.5
     assert rec["flops_total"] == rec["flops"]
     assert rec["bytes_accessed"] is None and rec["hlo_lines"] is None
@@ -174,8 +178,12 @@ def test_run_cell_fsdp_collectives_match_block_count(olmo_train):
     """Every weight is cast to bfloat16 and gathered at use, innermost
     mesh dim first: twice a layer (the forward and the remat recompute),
     twice for the tied embedding (lookup and head). Each use's gradient
-    is reduce-scattered (float32) over the 'data' dim it was split on,
-    once a use of the forward that autograd differentiates."""
+    is reduce-scattered (float32) over every dim it was split on, 'data'
+    and 'model' alike (the sequence split over 'model' gives its ranks
+    other tokens), once a use of the forward that autograd
+    differentiates. Each layer gathers its K and V (bfloat16) over
+    'model' in the forward and the recompute, and reduce-scatters their
+    gradients (float32) back to each rank's chunk."""
     from repro_torch.models import transformer as tf
     cfg = get_arch("olmo-1b").config()
     with fake_world(256):
@@ -196,14 +204,31 @@ def test_run_cell_fsdp_collectives_match_block_count(olmo_train):
             g = p.numel()
             for i in reversed(stages):
                 g //= mesh.size(i)
-                if mesh.mesh_dim_names[i] == "data":
-                    rs += g * 4
-                    n_rs += 1
+                n = 2 if name == "embed" else 1
+                rs += n * g * 4
+                n_rs += n
+    # the K/V: 16 rows a rank, the 4,096 positions gathered, 256 its own
+    kv = 16 * 4096 * cfg.n_kv_heads * cfg.head_dim
+    ag += cfg.n_layers * 4 * kv * 2
+    n_ag += cfg.n_layers * 4
+    rs += cfg.n_layers * 2 * kv // 16 * 4
+    n_rs += cfg.n_layers * 2
     coll = olmo_train["collectives"]
     assert coll["all-gather"] == {"count": n_ag, "bytes": ag}
     assert coll["reduce-scatter"] == {"count": n_rs, "bytes": rs}
     assert coll["all-to-all"]["count"] == 0
     assert coll["collective-permute"]["count"] == 0
+
+
+def _cache_bytes(cfg, rules, B: int, S: int) -> int:
+    """The bytes of rank 0's K and V blocks: ``cache_axes()`` under
+    ``rules`` (divisible_spec: the batch's axes dropped where B does not
+    divide them)."""
+    from repro_torch.models import transformer as tf
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    spec = sh.divisible_spec(rules, tf.cache_axes()["k"], shape)
+    return 2 * _nbytes(_block(shape, spec, sh.mesh_sizes(rules.mesh)),
+                       torch.bfloat16)
 
 
 def test_run_cell_moe_decode_multi_pod():
@@ -220,11 +245,47 @@ def test_run_cell_moe_decode_multi_pod():
                                         param_dtype=torch.bfloat16)),
             rules, tf.param_axes(cfg))
     params = sum(_nbytes(s, d) for s, d in blocks)
-    # the cache's 128 rows over (pod, data) = 32 ranks: 4 rows each
-    kv = (cfg.n_layers, 4, 32768, cfg.n_kv_heads, cfg.head_dim)
+    # the cache's 128 rows over (pod, data) = 32 ranks and its 32,768
+    # slots over 16 'model' ranks: (4, 2,048) each
+    kv = (cfg.n_layers, 4, 2048, cfg.n_kv_heads, cfg.head_dim)
+    assert _cache_bytes(cfg, rules, 128, 32768) == 2 * _nbytes(
+        kv, torch.bfloat16)
     want = params + 2 * _nbytes(kv, torch.bfloat16) + 4 + 4 * 1 * 4
     assert rec["memory"]["argument_size_in_bytes"] == want
-    assert "batch axes only" in rec["notes"]
+    assert "batch axes only" not in rec["notes"] and rec["notes"] == ""
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_run_cell_lm_decode_cache_blocks(shape):
+    """olmo-1b's decode cells hold rank 0's block of the cache as
+    ``cache_axes()`` under the rules give it: ``decode_32k`` its 8 of 128
+    rows and 2,048 of 32,768 slots, ``long_500k`` its one row whole and
+    2,048 of 524,288 slots (over ("data", "model")); the record's
+    argument bytes are those blocks, the bf16 weights' blocks, ``len``
+    and the tokens."""
+    from repro_torch.models import transformer as tf
+    rec = run_cell("olmo-1b", shape, "single", save=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg = get_arch("olmo-1b").config()
+    spec = cells.LM_SHAPES[shape]
+    with fake_world(256):
+        mesh = make_host_mesh((16, 16), ("data", "model"))
+        rules = sh.lm_rules(mesh, training=False, decode=True,
+                            long_context=shape == "long_500k")
+        blocks = _param_blocks(_meta_model(
+            lambda g, d: tf.init_params(g, cfg, device=d,
+                                        param_dtype=torch.bfloat16)),
+            rules, tf.param_axes(cfg))
+        cache = _cache_bytes(cfg, rules, spec["batch"], spec["seq"])
+    rows = spec["batch"] // 16 if shape == "decode_32k" else 1
+    assert cache == 2 * _nbytes((cfg.n_layers, rows, 2048, cfg.n_kv_heads,
+                                 cfg.head_dim), torch.bfloat16)
+    params = sum(_nbytes(s, d) for s, d in blocks)
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        params + cache + 4 + rows * 4
+    # the step writes its cache in place
+    assert rec["memory"]["alias_size_in_bytes"] == cache
+    assert rec["notes"] == ""
 
 
 def test_run_cell_recsys_serve_and_graph_train():

@@ -14,7 +14,8 @@ One module fixture spawns each world once (4 ranks for the (2, 2) mesh,
 test reads its results:
 
   * olmo-1b smoke, batch 8 x 32 with a mask that gives each data rank a
-    different token count: the step-0 loss and every gradient, then 3
+    different token count (on (2, 2) each rank also takes its half of the
+    sequence, which ``lm_rules`` split over 'model'): the step-0 loss and every gradient, then 3
     AdamW steps (loss, grad norm, every parameter and moment), against
     ``make_train_step`` on one device: rtol 1e-5 / atol 1e-6 on the
     loss, 1e-4 / 1e-6 on gradients, parameters and moments (float32; the
@@ -29,8 +30,10 @@ test reads its results:
     (FSDP, the a2a, the aux loss over the whole batch), its backward and remat recompute run
     outside the rules' context as the card's autograd threads run them:
     loss rtol 1e-5 / atol 1e-6, gradients rtol 1e-4 / atol 1e-6;
-  * the a2a MoE on (1, 2) and (2, 2) at no-drop capacity (cf = E / K)
-    against ``apply_moe``: output rtol 1e-5 / atol 1e-6, aux 1e-6
+  * the a2a MoE on (1, 2) and (2, 2) at no-drop capacity (cf = E / K),
+    each rank on its rows and chunk of the sequence (``lm_rules`` split
+    it over 'model', and so does ``local_batch``), against
+    ``apply_moe``: output rtol 1e-5 / atol 1e-6, aux 1e-6
     absolute, gradients of every weight and of the input rtol 1e-4 /
     atol 1e-6; the path must have made its all-to-alls;
   * the row-sharded lookup on (4, 2): rows and table gradient against
@@ -451,28 +454,30 @@ def test_checkpoint_resumes_across_meshes(runs):
 
 @pytest.mark.parametrize("world", ["r2", "r4"])
 def test_a2a_moe_matches_apply_moe(runs, world):
-    """The expert-parallel MoE on (1, 2) and (2, 2) at no-drop capacity:
-    output (each rank's rows), aux (the shares sum to the whole batch's)
-    and every gradient equal the one-device ``apply_moe``."""
+    """The expert-parallel MoE on (1, 2) and (2, 2) at no-drop capacity,
+    the sequence split over 'model' as ``lm_rules`` split it: output and
+    the input's gradient (each rank's rows and chunk of the sequence),
+    aux (every rank's share, summed, is the whole batch's) and every
+    weight's gradient equal the one-device ``apply_moe``."""
     out, aux, keys, grads = runs["moe"]
     ranks = runs[world]
     n_data = 2 if world == "r4" else 1
-    rows = out.shape[0] // n_data
-    shares = {}
+    rows, cols = out.shape[0] // n_data, out.shape[1] // 2
+    shares = []
     for r, res in enumerate(ranks):
         got = res["a2a"]
         assert got["a2a_calls"] >= 2, "the all-to-all path was not taken"
         assert got["keys"] == keys
-        d = r // 2 if world == "r4" else 0
-        _close(got["out"], out[d * rows:(d + 1) * rows], 1e-5, 1e-6,
-               f"rank {r} out")
-        _close(got["grad_x"], grads[-1][d * rows:(d + 1) * rows], 1e-4,
-               1e-6, f"rank {r} grad x")
+        d, m = (r // 2, r % 2) if world == "r4" else (0, r)
+        blk = (slice(d * rows, (d + 1) * rows), slice(m * cols,
+                                                      (m + 1) * cols))
+        _close(got["out"], out[blk], 1e-5, 1e-6, f"rank {r} out")
+        _close(got["grad_x"], grads[-1][blk], 1e-4, 1e-6,
+               f"rank {r} grad x")
         for k, a, b in zip(keys, got["grads"], grads[:-1]):
             _close(a, b, 1e-4, 1e-6, f"rank {r} grad {k}")
-        shares.setdefault(r % 2, []).append(got["aux"])
-    for model_rank, s in shares.items():
-        assert abs(sum(s) - float(aux)) < 1e-6, (model_rank, s, float(aux))
+        shares.append(got["aux"])
+    assert abs(sum(shares) - float(aux)) < 1e-6, (shares, float(aux))
 
 
 def test_row_sharded_lookup_matches_table_and_reference(runs):
