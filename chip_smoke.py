@@ -240,9 +240,9 @@ nonzero and prints no result):
                presets need 110 GB and more);
  21. train_sharded — sharded training, its two gloo ranks on the one
                card: ``python -m repro_torch.launch.train --arch olmo-1b
-               --preset full --layers 4 --devices 2 --steps 10 --batch 8
+               --preset full --layers 2 --devices 2 --steps 10 --batch 8
                --seq 512 --ckpt-dir D`` (OLMo-1B's widths, its depth cut
-               from 16 to 4 layers for time; mesh (2, 1), FSDP over
+               from 16 to 2 layers for time; mesh (2, 1), FSDP over
                "data"), killed with its ranks once its step-4 checkpoint
                is on disk (a preemption at step 5): its mesh line, finite
                losses for steps 0-4 within ``TS_LOSS_RTOL`` of the same
@@ -276,6 +276,23 @@ nonzero and prints no result):
                128 tokens): at no-drop capacity the loss (rtol 1e-5) and
                every gradient (1e-4 of its largest entry) against one
                device, and at capacity 1.25 the kept share of picks;
+               olmoe served at depth 2 (prefill of 2 x 128 through the
+               all-to-all, four greedy decode steps with each rank running
+               its 32 of 64 experts and the partial outputs summed over
+               'model'), fp32 logits within 1e-4, bf16 within 4 ulps in
+               norm, tokens equal, against one device (in bf16 a row whose
+               routing flips at a near tie, 1e-2 in probability, left
+               out, and decode held against one device's decode from the
+               rank's own prefill state), with each rank's expert bytes; MeshGraphNet at its published widths (15
+               layers, d 128) on ``full_graph_sm``'s Cora geometry (2,708
+               nodes, 10,556 edges, d_feat 1,433), each rank its half of
+               the nodes and edges: step 0 and two AdamW steps in fp32
+               and in float64, step 0's fp32 loss and the float64 losses
+               within 1e-5 of one device's, step 0's float64 gradients
+               within 1e-4 of each leaf's largest entry of one device's
+               (the fp32 gradients and later losses reported: at these
+               widths one device's own fp32 rounding reaches 1e-3 of a
+               leaf's largest entry);
  23. examples — ``repro_torch.examples.quickstart`` and ``serve_retrieval``
                on the card, stage by stage (the planner and K2 must
                launch; rank-safe recall@10 1.000; every result against
@@ -290,10 +307,13 @@ nonzero and prints no result):
                (``DR_CELLS``, rank 0 of a 256- or 512-rank fake group;
                every record ok); the memory model on the card for OLMo-1B
                ``train_4k`` on the (2, 16, 16) mesh (the sequence over
-               'model') and DLRM ``train_batch`` on (16, 16) (each arch's
-               first training cell predicted under 70 GB), and OLMo-1B
-               ``decode_32k`` on (16, 16) at its production block (8 rows,
-               2,048 of the cache's 32,768 slots): built and sharded on meta,
+               'model'), DLRM ``train_batch`` on (16, 16) and
+               MeshGraphNet ``ogb_products`` on (16, 16) (rank 0's block
+               of the graph's nodes and edges; each arch's first training
+               cell predicted under 70 GB), and OLMo-1B and olmoe
+               ``decode_32k`` on (16, 16) at their production blocks (8
+               rows, 2,048 of the cache's 32,768 slots; olmoe's 4 of 64
+               experts a layer): built and sharded on meta,
                only rank 0's blocks drawn on the card, one step under the
                same fake group, the predicted peak (arguments + temp)
                within 10% or 512 MiB of ``max_memory_allocated``, FLOPs
@@ -3820,7 +3840,7 @@ def phase_train_moe(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 TS_ARCH = "olmo-1b"
-TS_LAYERS = 4               # of 16: a cut for time (widths published)
+TS_LAYERS = 2               # of 16: a cut for time (widths published)
 TS_DEVICES = 2              # the launcher's (2, 1) mesh: FSDP over "data"
 TS_STEPS, TS_BATCH, TS_SEQ = 10, 8, 512
 TS_RESUME_AT = 4            # the launcher checkpoints every 5 steps
@@ -3934,7 +3954,7 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
 def phase_train_sharded(torch, tl: dict) -> dict:
     """Sharded training with its ranks sharing the card (gloo): OLMo-1B at
     its published widths, cut to ``TS_LAYERS`` layers, through ``python
-    -m repro_torch.launch.train --preset full --layers 4 --devices 2
+    -m repro_torch.launch.train --preset full --layers 2 --devices 2
     --steps 10`` (mesh (2, 1), FSDP, 8 x 512), stopped (its process group
     killed) once the step-4 checkpoint it writes after step 4 is on disk:
     a preemption at step 5. The launcher's ten steps run here on one
@@ -4154,9 +4174,21 @@ MA_RTOL = 1e-4              # losses and logits against one device
 # check (a fault of a few 1e-3 in norm can pass in bf16)
 MA_SERVE_DTYPES = ("bfloat16", "float32")
 MA_BF16_L2 = 4 * 2.0 ** -8
+# a routing flip between bf16 runs must be a near tie: the probabilities
+# of the first differing pick's rank and the next within this (as
+# tests/test_torch_moe_bf16.py bounds one); its row is then left out
+MA_BF16_TIE = 1e-2
 MA_GRAD_RTOL = 1e-4         # fp32 gradients, of each leaf's largest entry
 MA_SEED = SEED + 90
 MA_MOE_BATCH, MA_MOE_SEQ = 2, 128
+# olmoe served on the mesh (the experts split over 'model' in decode):
+# prefill of MA_MOE_BATCH x MA_MOE_SEQ, the cache grown by 8 slots
+MA_MOE_SLOTS = MA_MOE_SEQ + 8
+# MeshGraphNet at its published widths on full_graph_sm's Cora geometry,
+# its nodes and edges over the mesh as gnn_rules lay them
+MA_GNN_SHAPE = "full_graph_sm"
+MA_GNN_STEPS = 2
+MA_GNN_LOSS_RTOL = 1e-5
 
 
 def _ma_cfg():
@@ -4223,14 +4255,22 @@ def ma_run(dev, cfg, mesh=None) -> dict:
     return out
 
 
-def ma_serve(dev, cfg, mesh=None) -> dict:
+def ma_serve(dev, cfg, mesh=None, batch: int = MA_BATCH,
+             seq: int = MA_SEQ, slots: int = MA_SLOTS,
+             keep_state: bool = False, start: dict | None = None) -> dict:
     """``ma_run``'s serving half in ``cfg``'s compute dtype, the KV cache
-    in the same dtype: a fresh draw, prefill, the cache grown, greedy
-    decode steps."""
+    in the same dtype: a fresh draw, prefill of ``batch`` x ``seq``, the
+    cache grown to ``slots``, greedy decode steps; for an MoE, the expert
+    weights each rank holds (bytes) and each decode step's widths (the
+    experts a layer computes with) and gathered bytes. ``keep_state``
+    returns the prefill's whole cache and logits (``state``, on the
+    host); decode then starts from ``start`` (such a state) in place of
+    this run's own prefill."""
     import torch
 
     from repro_torch.distributed import parallelize as par
     from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4243,15 +4283,23 @@ def ma_serve(dev, cfg, mesh=None) -> dict:
         pre = par.Layout(rules, par.batch_axes_of(rules))
         drules = sh.lm_rules(mesh, training=False, decode=True)
         dec = par.Layout(drules, par.batch_axes_of(drules))
-    toks = {"tokens": _ma_batch(cfg.vocab, MA_STEPS)["tokens"].to(dev)}
+    expert_bytes = sum(
+        (p.to_local() if hasattr(p, "to_local") else p).nbytes
+        for name, p in model.named_parameters()
+        if name.split(".")[-2:] in (["moe", k] for k in moe.EXPERT_KEYS))
+    toks = {"tokens": _ma_batch(cfg.vocab, MA_STEPS, batch, seq)[
+        "tokens"].to(dev)}
     with torch.no_grad():
         with par.use_layout(pre):
             if pre is not None:
                 toks, _ = par.local_batch(toks, pre)
+            offset = par.seq_offset(toks["tokens"].shape[1])
+            pre_routes: list = []
             _sync(dev)
             t0 = time.perf_counter()
-            logits, cache = tf.prefill(model, toks["tokens"],
-                                       cache_dtype=cfg.compute_dtype)
+            with recorded_routing(pre_routes):
+                logits, cache = tf.prefill(model, toks["tokens"],
+                                           cache_dtype=cfg.compute_dtype)
             _sync(dev)
             prefill_ms = (time.perf_counter() - t0) * 1e3
             # each rank's block gathered along the sequence: the whole
@@ -4261,8 +4309,18 @@ def ma_serve(dev, cfg, mesh=None) -> dict:
             n = int(cache["len"])
             prefill_block = list(cache["k"].shape)
             del cache
+            first = logits
+            state = None
+            if keep_state:
+                state = dict(len=n, logits=logits.float().cpu().numpy(),
+                             **{kv: _host_bits(whole[kv]) for kv in whole})
+            if start is not None:
+                n = start["len"]
+                first = torch.from_numpy(start["logits"]).to(dev)
+                whole = {kv: _device_bits(start[kv], cfg.compute_dtype, dev)
+                         for kv in ("k", "v")}
         with par.use_layout(dec):
-            grown = tf.init_cache(cfg, MA_BATCH, MA_SLOTS,
+            grown = tf.init_cache(cfg, batch, slots,
                                   cfg.compute_dtype, device=dev)
             blk = grown["k"].shape[2]
             axes = par.split_axes("batch", "cache_seq")
@@ -4274,17 +4332,37 @@ def ma_serve(dev, cfg, mesh=None) -> dict:
             del whole
             grown["len"] = torch.tensor(n, dtype=torch.int32, device=dev)
             ptrs = (grown["k"].data_ptr(), grown["v"].data_ptr())
-            nxt = logits[:, -1].argmax(-1, keepdim=True)
-            dec_logits, tokens, dec_ms = [], [], []
-            for _ in range(MA_DECODE):
-                _sync(dev)
-                t0 = time.perf_counter()
-                d, grown = tf.decode_step(model, grown, nxt)
-                _sync(dev)
-                dec_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
-                nxt = d[:, -1].argmax(-1, keepdim=True)
-                dec_logits.append(d.float().cpu().numpy())
-                tokens.append(nxt.cpu().numpy())
+            nxt = first[:, -1].argmax(-1, keepdim=True)
+            dec_logits, tokens, dec_ms, widths, gathered = [], [], [], [], []
+            dec_routes: list = []
+            real_ffn, real_gather = moe._expert_ffn, par._gather_dim
+
+            def ffn(params, x, act):
+                widths[-1].append(int(params["w_up"].shape[0]))
+                return real_ffn(params, x, act)
+
+            def gather_dim(t, dim, g):
+                out = real_gather(t, dim, g)
+                gathered[-1] += out.numel() * out.element_size()
+                return out
+
+            moe._expert_ffn, par._gather_dim = ffn, gather_dim
+            try:
+                for _ in range(MA_DECODE):
+                    widths.append([])
+                    gathered.append(0)
+                    dec_routes.append([])
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    with recorded_routing(dec_routes[-1]):
+                        d, grown = tf.decode_step(model, grown, nxt)
+                    _sync(dev)
+                    dec_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+                    nxt = d[:, -1].argmax(-1, keepdim=True)
+                    dec_logits.append(d.float().cpu().numpy())
+                    tokens.append(nxt.cpu().numpy())
+            finally:
+                moe._expert_ffn, par._gather_dim = real_ffn, real_gather
             kept = (grown["k"].data_ptr(), grown["v"].data_ptr()) == ptrs
     out = dict(
         prefill_logits=logits.float().cpu().numpy(),
@@ -4292,7 +4370,11 @@ def ma_serve(dev, cfg, mesh=None) -> dict:
         tokens=tokens, storage_kept=kept, len=int(grown["len"]),
         prefill_block=prefill_block, decode_block=list(grown["k"].shape),
         prefill_ms=round(prefill_ms, 2), decode_ms=dec_ms,
-        peak_mb=_peak_mb(dev))
+        expert_bytes_held=expert_bytes, decode_expert_widths=widths,
+        decode_gathered_bytes=gathered, prefill_offset=offset,
+        prefill_routing=_host_routes(pre_routes),
+        decode_routing=[_host_routes(r) for r in dec_routes],
+        state=state, peak_mb=_peak_mb(dev))
     del model, grown
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4441,12 +4523,142 @@ def _ma_olmo_grads(rank: int, dev, cfg, mesh) -> dict | None:
     return out
 
 
+def _ma_gnn_cfg():
+    """MeshGraphNet's published config (15 layers, d 128) at
+    ``MA_GNN_SHAPE``'s feature widths, and the shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import GNN_SHAPES
+    spec = GNN_SHAPES[MA_GNN_SHAPE]
+    return get_arch("meshgraphnet").config(
+        node_in=spec["d_feat"], edge_in=spec["d_edge"],
+        node_out=spec["node_out"]), spec
+
+
+def ma_gnn(dev, cfg, spec: dict, mesh=None, steps: int = MA_GNN_STEPS,
+           float64: bool = False) -> dict:
+    """MeshGraphNet ``cfg`` drawn on ``dev`` from ``MA_SEED`` on a random
+    graph of ``spec``'s geometry (fp32, or the same draw in float64):
+    step 0's loss and gradients (whole, on the host), then ``steps``
+    AdamW steps, each on the step's graph. On ``mesh`` (``gnn_rules``)
+    each rank holds its block of the graph's node rows and edge rows,
+    padded to the ranks."""
+    import torch
+
+    from repro_torch.data.pipeline import GraphSpec, random_graph
+    from repro_torch.distributed import parallelize as par
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.training.tree import leaves, module_tree
+    gspec = GraphSpec(spec["n_nodes"], spec["n_edges"], spec["d_feat"],
+                      spec["d_edge"], spec["node_out"], seed=MA_SEED)
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(
+        MA_SEED), cfg, device=dev)
+    if float64:
+        model = model.double()
+    layout, parts = None, 1
+    if mesh is not None:
+        rules = sh.gnn_rules(mesh)
+        par.shard_module(model, rules, gnn.param_axes(cfg))
+        layout, parts = par.Layout(rules, par.batch_axes_of(rules)), \
+            mesh.size()
+
+    def graph(step: int) -> dict:
+        return gnn.pad_graph({k: v.to(dev, torch.float64) if float64
+                              and v.is_floating_point() else v.to(dev)
+                              for k, v in random_graph(gspec, step).items()},
+                             parts)
+
+    block = graph(0)
+    if layout is not None:
+        block, _ = par.local_batch(block, layout)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with par.use_layout(layout):
+        local = gnn.loss_fn(model, block)
+        loss0 = float(par.batch_sum(local.detach()))
+    grads = torch.autograd.grad(local, leaves(module_tree(model)))
+    _sync(dev)
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    # collectives: every rank gathers
+    whole = [par.full(g).cpu() for g in grads]
+    del grads, local
+    opt = opt_lib.adamw(opt_lib.constant_schedule(MA_LR))
+    state = opt.init(module_tree(model))
+    step = make_train_step(gnn.loss_fn, opt, TrainConfig(), layout=layout)
+    losses, step_ms = [], []
+    for i in range(steps):
+        b = graph(i)
+        _sync(dev)
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, b, i)
+        losses.append(float(m["loss"]))
+        _sync(dev)
+        step_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+    out = dict(loss0=loss0, grads=whole, losses=losses, step_ms=step_ms,
+               fwd_bwd_ms=round(fb_ms, 2),
+               block_rows=dict(nodes=int(block["node_feat"].shape[0]),
+                               edges=int(block["senders"].shape[0])),
+               peak_mb=_peak_mb(dev))
+    del model, state, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ma_gnn_rank(rank: int, dev, mesh, cfg, spec: dict) -> dict:
+    """``ma_gnn`` on the mesh in fp32 and in float64 (``apply_norm``
+    computes in float32 whatever the dtype): step 0's gradients, then the
+    AdamW steps; rank 0 then runs both on one device and returns the
+    differences of the losses and of each gradient (over the leaf's
+    largest entry) between the mesh and one device in each dtype, and of
+    the fp32 gradients from the float64 run. In fp32 this model at these
+    widths is not conditioned for 1e-4: one device's own gradients lie up
+    to about 1e-3 of a leaf's largest entry from the float64 run of the
+    same step, the mesh's as far on other leaves, and AdamW's first update
+    carries that into the next loss at about 1e-5 (the first card runs
+    and the CPU, PERF.md)."""
+    got = ma_gnn(dev, cfg, spec, mesh)
+    whole = got.pop("grads")
+    got64 = ma_gnn(dev, cfg, spec, mesh, float64=True)
+    if rank != 0:
+        return got
+    one = ma_gnn(dev, cfg, spec)
+    one64 = ma_gnn(dev, cfg, spec, float64=True)
+
+    def rel(a, b):
+        return [float((x.double() - y.double()).abs().max())
+                / (float(y.abs().max()) or 1.0) for x, y in zip(a, b)]
+
+    def losses(r):
+        return [r["loss0"], *r["losses"]]
+    errs64 = rel(got64["grads"], one64["grads"])
+    errs = rel(whole, one["grads"])
+    got.update(one_device=dict(loss0=one["loss0"], losses=one["losses"],
+                               step_ms=one["step_ms"],
+                               fwd_bwd_ms=one["fwd_bwd_ms"],
+                               peak_mb=one["peak_mb"]),
+               loss_rel_err=[abs(a - b) / abs(b) for a, b in zip(
+                   losses(got), losses(one))],
+               loss64_rel_err=[abs(a - b) / abs(b) for a, b in zip(
+                   losses(got64), losses(one64))],
+               grad64_rel_err=errs64, grad64_rel_err_max=max(errs64),
+               grad_rel_err=errs, grad_rel_err_max=max(errs),
+               fp32_mesh_vs_float64=rel(whole, one64["grads"]),
+               fp32_one_device_vs_float64=rel(one["grads"], one64["grads"]),
+               leaves=len(errs))
+    return got
+
+
 def _ma_rank(rank: int, device_type: str, cfg, cfgs: dict,
-             batch: dict) -> dict:
+             batch: dict, gnn: tuple) -> dict:
     """One rank of the (1, 2) mesh: OLMo (``ma_run``), OLMo's fp32
-    gradients (``_ma_olmo_grads``), then olmoe through the all-to-all;
-    rank 0 then runs olmoe's no-drop step on one device against the
-    gathered gradients."""
+    gradients (``_ma_olmo_grads``), then olmoe through the all-to-all
+    (rank 0 then runs olmoe's no-drop step on one device against the
+    gathered gradients), olmoe served with its experts split over
+    'model' in decode, and MeshGraphNet's nodes and edges over the mesh
+    (``_ma_gnn_rank``)."""
     import torch
 
     from repro_torch.launch.mesh import make_host_mesh, rank_device
@@ -4460,7 +4672,128 @@ def _ma_rank(rank: int, device_type: str, cfg, cfgs: dict,
         moe["no_drop"].update(_ma_reference(cfgs["no_drop"], batch, dev,
                                             whole))
     out["olmoe"] = moe
+    out["olmoe_serve"] = {
+        dt: ma_serve(dev, dataclasses.replace(cfgs["no_drop"], dtype=dt),
+                     mesh, MA_MOE_BATCH, MA_MOE_SEQ, MA_MOE_SLOTS,
+                     keep_state=dt == "bfloat16")
+        for dt in MA_SERVE_DTYPES}
+    out["gnn"] = _ma_gnn_rank(rank, dev, mesh, *gnn)
     return out
+
+
+def _host_bits(t) -> np.ndarray:
+    """A tensor's bits on the host (a 16-bit float as int16: numpy has no
+    bfloat16)."""
+    import torch
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def _device_bits(a: np.ndarray, dtype, dev):
+    """``_host_bits``' array back on ``dev`` as ``dtype``."""
+    import torch
+    t = torch.from_numpy(a).to(dev)
+    return t.view(dtype) if t.dtype == torch.int16 else t
+
+
+def _host_routes(log: list) -> list:
+    """``recorded_routing``'s picks and probabilities as numpy arrays (a
+    spawned rank returns no tensor: its storage leaves with the rank)."""
+    return [{"idx": r["idx"].numpy(), "probs": r["probs"].numpy()}
+            for r in log]
+
+
+def _ma_flips(got: list, want: list, offset: int, out: set) -> list:
+    """The rows whose MoE picks differ between two recorded runs of the
+    same layers (``recorded_routing``; ``got``'s tokens are ``want``'s
+    from ``offset`` on), rows in ``out`` skipped: each must be a near tie
+    in ``want`` (``MA_BF16_TIE``) and is added to ``out``. Returns the
+    flips."""
+    K = want[0]["idx"].shape[-1] if want else 0
+    flips = []
+    for layer, (g, w) in enumerate(zip(got, want)):
+        w_idx = w["idx"][:, offset:offset + g["idx"].shape[1]]
+        w_p = w["probs"][:, offset:offset + g["idx"].shape[1]]
+        for b, t in zip(*np.nonzero((g["idx"] != w_idx).any(-1))):
+            b, t = int(b), int(t)
+            if b in out:
+                continue
+            r = int(np.argmax(g["idx"][b, t] != w_idx[b, t]))
+            top = np.sort(w_p[b, t])[::-1]
+            gap = float(top[r] - top[r + 1])
+            if r >= K or gap > MA_BF16_TIE:
+                raise AssertionError(
+                    f"model_axis: layer {layer}, row {b}, token "
+                    f"{t + offset} picks {g['idx'][b, t].tolist()} against "
+                    f"{w_idx[b, t].tolist()} at a probability gap of "
+                    f"{gap:.3g}")
+            flips.append(dict(layer=layer, row=b, token=t + offset,
+                              gap=gap))
+            out.add(b)
+    return flips
+
+
+def _ma_serve_check(sv: dict, want: dict, dt: str, seq: int,
+                    bf16_prefill: bool = False, prefill: bool = True,
+                    decode: bool = True) -> tuple[dict, bool]:
+    """A rank's ``ma_serve`` against one device's in compute dtype ``dt``:
+    the prefill's logits within ``MA_RTOL`` (in bf16 with
+    ``bf16_prefill``, within ``MA_BF16_L2`` in norm: an MoE's all-to-all
+    rounds elsewhere than one device), decode's within ``MA_RTOL`` in
+    fp32 and ``MA_BF16_L2`` in norm in bf16, the greedy tokens equal, the
+    cache's storage kept. In bf16 an MoE's routing may flip at a near tie
+    (``_ma_flips``): the row is left out of what is compared from then
+    on, and where every row flipped, the audit of the flips (each a near
+    tie) is all the bf16 run is held to; the fp32 run carries the tight
+    check. ``prefill`` or ``decode`` False leaves that half out (decode
+    against a run that started from this rank's prefill state). (the
+    row, whether it passed)"""
+    bf16 = dt == "bfloat16"
+    out: set = set()
+    flips = []
+    if bf16 and prefill:
+        flips += _ma_flips(sv["prefill_routing"], want["prefill_routing"],
+                           sv["prefill_offset"], out)
+    rows = [b for b in range(want["prefill_logits"].shape[0])
+            if b not in out]
+    pre_err = pre_l2 = None
+    ok = True
+    if rows and prefill:
+        pre_err = _rel(sv["prefill_logits"][rows],
+                       want["prefill_logits"][rows])
+        pre_l2 = _l2_rel(sv["prefill_logits"][rows],
+                         want["prefill_logits"][rows])
+        ok = (pre_l2 <= MA_BF16_L2 if bf16 and bf16_prefill
+              else pre_err <= MA_RTOL)
+    dec_err, dec_l2, differing, same_tokens = [], [], [], True
+    for i, (a, b) in enumerate(zip(sv["decode_logits"],
+                                   want["decode_logits"]) if decode else ()):
+        if bf16:
+            flips += _ma_flips(sv["decode_routing"][i],
+                               want["decode_routing"][i], 0, out)
+        rows = [r for r in range(b.shape[0]) if r not in out]
+        if not rows:
+            break
+        dec_err.append(_rel(a[rows], b[rows]))
+        dec_l2.append(_l2_rel(a[rows], b[rows]))
+        differing.append(float(np.mean(a[rows] != b[rows])))
+        same_tokens &= np.array_equal(sv["tokens"][i][rows],
+                                      want["tokens"][i][rows])
+    ok &= (same_tokens and sv["storage_kept"] and want["storage_kept"]
+           and sv["len"] == seq + MA_DECODE
+           and all(e <= (MA_BF16_L2 if bf16 else MA_RTOL)
+                   for e in (dec_l2 if bf16 else dec_err)))
+    return dict(
+        prefill_logit_rel_err=pre_err, prefill_logit_l2_rel_err=pre_l2,
+        decode_logit_rel_err=dec_err, decode_logit_l2_rel_err=dec_l2,
+        decode_logits_differing=differing,
+        greedy_tokens_equal=same_tokens, routing_flips=flips,
+        rows_left_out=sorted(out),
+        decode_storage_kept=sv["storage_kept"],
+        prefill_block=sv["prefill_block"], decode_block=sv["decode_block"],
+        prefill_ms=sv["prefill_ms"], decode_ms=sv["decode_ms"],
+        serve_peak_mb=sv["peak_mb"]), ok
 
 
 def _rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -4496,7 +4829,26 @@ def phase_model_axis(torch) -> dict:
     expert-parallel all-to-all on each rank's chunk of the sequence (fp32,
     2 x 128 tokens): at no-drop capacity the loss (rtol 1e-5) and every
     gradient (``MA_GRAD_RTOL``) against one device, and at capacity 1.25
-    the kept share of picks of each source shard."""
+    the kept share of picks of each source shard. Then olmoe served
+    (``ma_serve`` at depth 2, no-drop capacity, 2 x ``MA_MOE_SEQ``): the
+    prefill through the all-to-all, decode with each rank's experts only
+    (32 of 64 a layer, the partial outputs summed over 'model'), against
+    one device as OLMo's serving is (the prefill too within
+    ``MA_BF16_L2`` in bf16, and a row whose routing flips at a near tie
+    in bf16 left out, ``_ma_flips``; in bf16 the prompt's 256 tokens
+    route at enough near ties that decode is held against one device's
+    decode from the rank's own prefill state, ``keep_state``/``start``);
+    each rank's expert bytes and each decode step's expert widths and
+    gathered bytes. Then MeshGraphNet at its
+    published widths on ``MA_GNN_SHAPE``'s Cora geometry, its nodes and
+    edges over the mesh (``ma_gnn``, ``_ma_gnn_rank``), each rank holding
+    half of the rows, in fp32 and in float64: step 0's fp32 loss and the
+    float64 losses of step 0 and ``MA_GNN_STEPS`` AdamW steps within
+    ``MA_GNN_LOSS_RTOL`` of one device's, step 0's float64 gradients each
+    within ``MA_GRAD_RTOL`` of its leaf's largest entry of one device's
+    (the fp32 gradients and the losses after fp32 updates reported: fp32
+    rounding alone puts leaves of either side 1e-3 of their largest entry
+    from the float64 run at these widths)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import spawn_ranks
 
@@ -4508,8 +4860,9 @@ def phase_model_axis(torch) -> dict:
     moe_batch = _ma_batch(vocab, 0, MA_MOE_BATCH, MA_MOE_SEQ)
     t0 = time.perf_counter()
     olmo = _ma_cfg()
-    ranks = spawn_ranks(_ma_rank, 2, (DEVICE, olmo, cfgs, moe_batch),
-                        timeout_s=900.0)
+    gcfg, gspec = _ma_gnn_cfg()
+    ranks = spawn_ranks(_ma_rank, 2, (DEVICE, olmo, cfgs, moe_batch,
+                                      (gcfg, gspec)), timeout_s=900.0)
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     one = ma_run(torch.device(DEVICE), olmo)
@@ -4524,29 +4877,9 @@ def phase_model_axis(torch) -> dict:
                    train_peak_mb=got["peak_mb"])
         ok = max(loss_err) <= MA_RTOL
         for dt in MA_SERVE_DTYPES:
-            sv, want = res["olmo"]["serve"][dt], one["serve"][dt]
-            pre_err = _rel(sv["prefill_logits"], want["prefill_logits"])
-            pairs = list(zip(sv["decode_logits"], want["decode_logits"]))
-            dec_err = [_rel(a, b) for a, b in pairs]
-            dec_l2 = [_l2_rel(a, b) for a, b in pairs]
-            same_tokens = all(np.array_equal(a, b) for a, b in
-                              zip(sv["tokens"], want["tokens"]))
-            ok &= (pre_err <= MA_RTOL and same_tokens
-                   and sv["storage_kept"] and want["storage_kept"]
-                   and sv["len"] == MA_SEQ + MA_DECODE
-                   and (max(dec_l2) <= MA_BF16_L2 if dt == "bfloat16"
-                        else max(dec_err) <= MA_RTOL))
-            row[dt] = dict(
-                prefill_logit_rel_err=pre_err, decode_logit_rel_err=dec_err,
-                decode_logit_l2_rel_err=dec_l2,
-                decode_logits_differing=[float(np.mean(a != b))
-                                         for a, b in pairs],
-                greedy_tokens_equal=same_tokens,
-                decode_storage_kept=sv["storage_kept"],
-                prefill_block=sv["prefill_block"],
-                decode_block=sv["decode_block"],
-                prefill_ms=sv["prefill_ms"], decode_ms=sv["decode_ms"],
-                serve_peak_mb=sv["peak_mb"])
+            row[dt], good = _ma_serve_check(res["olmo"]["serve"][dt],
+                                            one["serve"][dt], dt, MA_SEQ)
+            ok &= good
         if not ok:
             bad.append(r)
         out_ranks.append(row)
@@ -4554,6 +4887,70 @@ def phase_model_axis(torch) -> dict:
         raise AssertionError(
             f"model_axis: ranks {bad} against one device (rtol {MA_RTOL}, "
             f"bf16 decode {MA_BF16_L2} in norm): {out_ranks}")
+    # olmoe served, its experts split over 'model' in decode
+    E = cfgs["no_drop"].moe.n_experts
+    half = E // MA_MESH[1]
+    moe_one = {dt: ma_serve(torch.device(DEVICE), dataclasses.replace(
+        cfgs["no_drop"], dtype=dt), None, MA_MOE_BATCH, MA_MOE_SEQ,
+        MA_MOE_SLOTS) for dt in MA_SERVE_DTYPES}
+    moe_rows = []
+    for r, res in enumerate(ranks):
+        row, ok = dict(rank=r), True
+        for dt in MA_SERVE_DTYPES:
+            sv = res["olmoe_serve"][dt]
+            cfg_dt = dataclasses.replace(cfgs["no_drop"], dtype=dt)
+            if dt == "bfloat16":
+                # the prompt's 256 tokens route at many near ties, and a
+                # bf16 flip there moves a row's state: decode is held
+                # against one device's decode from this rank's prefill
+                # state (its whole cache and last logits)
+                row[dt], good = _ma_serve_check(
+                    sv, moe_one[dt], dt, MA_MOE_SEQ, bf16_prefill=True,
+                    decode=False)
+                cont = ma_serve(torch.device(DEVICE), cfg_dt, None,
+                                MA_MOE_BATCH, MA_MOE_SEQ, MA_MOE_SLOTS,
+                                start=sv["state"])
+                dec, good_dec = _ma_serve_check(sv, cont, dt, MA_MOE_SEQ,
+                                                prefill=False)
+                good &= good_dec
+                row[dt].update({k: dec[k] for k in (
+                    "decode_logit_rel_err", "decode_logit_l2_rel_err",
+                    "decode_logits_differing", "greedy_tokens_equal")},
+                    decode_routing_flips=dec["routing_flips"],
+                    decode_rows_left_out=dec["rows_left_out"],
+                    decode_against="one device from this rank's prefill "
+                                   "state")
+            else:
+                row[dt], good = _ma_serve_check(sv, moe_one[dt], dt,
+                                                MA_MOE_SEQ)
+            widths = sv["decode_expert_widths"]
+            row[dt].update(expert_bytes_held=sv["expert_bytes_held"],
+                           one_device_expert_bytes=moe_one[dt][
+                               "expert_bytes_held"],
+                           decode_expert_widths=widths,
+                           decode_gathered_bytes=sv["decode_gathered_bytes"],
+                           one_device_decode_ms=moe_one[dt]["decode_ms"])
+            ok &= good and all(w == [half] * cfgs["no_drop"].n_layers
+                               for w in widths)
+        if not ok:
+            bad.append(r)
+        moe_rows.append(row)
+    if bad:
+        raise AssertionError(
+            f"model_axis: olmoe served with its experts split over 'model', "
+            f"ranks {bad} against one device (fp32 rtol {MA_RTOL}, bf16 "
+            f"{MA_BF16_L2} in norm, {half} experts a layer): {moe_rows}")
+    # MeshGraphNet's nodes and edges over the mesh
+    gnn_res = [res["gnn"] for res in ranks]
+    g0 = gnn_res[0]
+    n_rows = -(-gspec["n_nodes"] // 2), -(-gspec["n_edges"] // 2)
+    if not (g0["loss_rel_err"][0] <= MA_GNN_LOSS_RTOL
+            and max(g0["loss64_rel_err"]) <= MA_GNN_LOSS_RTOL
+            and g0["grad64_rel_err_max"] <= MA_GRAD_RTOL
+            and all((g["block_rows"]["nodes"], g["block_rows"]["edges"])
+                    == n_rows for g in gnn_res)):
+        raise AssertionError(f"model_axis: MeshGraphNet partitioned over "
+                             f"the mesh against one device: {gnn_res}")
     grads = ranks[0]["olmo_grads"]
     if not (math.isclose(grads["loss"], grads["ref_loss"], rel_tol=1e-5)
             and grads["grad_rel_err_max"] < MA_GRAD_RTOL):
@@ -4613,6 +5010,33 @@ def phase_model_axis(torch) -> dict:
                          fwd_bwd_ms=[r["cf_1.25"]["fwd_bwd_ms"]
                                      for r in res]),
             rank_peak_mb=[r["cf_1.25"]["peak_mb"] for r in res]),
+        olmoe_decode_split=dict(
+            depth=cfg.n_layers, experts=E, experts_a_rank=half,
+            batch=MA_MOE_BATCH, seq=MA_MOE_SEQ, cache_slots=MA_MOE_SLOTS,
+            capacity_factor=cfg.moe.capacity_factor,
+            tolerance=dict(fp32_rtol=MA_RTOL, bf16_l2=MA_BF16_L2),
+            ranks=moe_rows,
+            one_device={dt: dict(prefill_ms=sv["prefill_ms"],
+                                 decode_ms=sv["decode_ms"],
+                                 serve_peak_mb=sv["peak_mb"],
+                                 tokens=[t.flatten().tolist()
+                                         for t in sv["tokens"]])
+                        for dt, sv in moe_one.items()}),
+        meshgraphnet=dict(
+            shape=MA_GNN_SHAPE, n_nodes=gspec["n_nodes"],
+            n_edges=gspec["n_edges"], d_feat=gspec["d_feat"],
+            layers=gcfg.n_layers, d_hidden=gcfg.d_hidden, dtype=gcfg.dtype,
+            steps=MA_GNN_STEPS, tolerance=dict(
+                fp32_step0_loss_rtol=MA_GNN_LOSS_RTOL,
+                float64_loss_rtol=MA_GNN_LOSS_RTOL,
+                float64_grad_err_over_max=MA_GRAD_RTOL),
+            ranks=[{k: v for k, v in g.items() if not isinstance(v, list)
+                    or k in ("losses", "step_ms", "loss_rel_err",
+                             "loss64_rel_err")}
+                   for g in gnn_res],
+            **{k: g0[k] for k in (
+                "grad64_rel_err", "grad_rel_err", "fp32_mesh_vs_float64",
+                "fp32_one_device_vs_float64")}),
         ranks_s=round(ranks_s, 2), launches=launches,
         seconds=round(time.perf_counter() - t_phase, 2))
     return {"launches": launches}
@@ -4745,6 +5169,7 @@ DR_CELLS = (
     ("dlrm-mlperf", "train_batch", "single"),
     ("llama4-scout-17b-a16e", "decode_32k", "single"),
     ("meshgraphnet", "molecule", "single"),
+    ("meshgraphnet", "ogb_products", "single"),
     ("olmo-1b", "decode_32k", "single"), ("olmo-1b", "train_4k", "multi"),
     ("olmoe-1b-7b", "decode_32k", "single"),
     ("qwen3-14b", "decode_32k", "single"),
@@ -4753,11 +5178,14 @@ DR_CELLS = (
 # (a candidate outside DR_CELLS gets its meta record here)
 DR_TRAIN = {"olmo-1b": (("train_4k", "multi"), ("train_4k", "single")),
             "dlrm-mlperf": (("train_batch", "single"),
-                            ("train_batch", "multi"))}
+                            ("train_batch", "multi")),
+            # the graph partitioned: 4,258.8 GiB a rank whole
+            "meshgraphnet": (("ogb_products", "single"),)}
 DR_FIT_BYTES = 70e9
 # the serving cells the memory model runs on the card at their production
-# blocks (the decode cache's sequence over 'model')
-DR_SERVE = (("olmo-1b", "decode_32k", "single"),)
+# blocks (the decode cache's sequence over 'model'; olmoe's experts too)
+DR_SERVE = (("olmo-1b", "decode_32k", "single"),
+            ("olmoe-1b-7b", "decode_32k", "single"))
 # predicted peak against the card's: 10% or 512 MiB, whichever is larger
 DR_REL, DR_ABS = 0.10, 512 * 2 ** 20
 DR_RETRIEVAL = ("asc-splade", "serve_k10")
@@ -4855,7 +5283,8 @@ def phase_dryrun(index, torch) -> dict:
     (a) torch's fake process group on this torch: one collective on a
     card tensor. (b) ``python -m repro_torch.launch.dryrun`` on meta for
     ``DR_CELLS`` (a subprocess; every record ok). (c) The memory model on
-    the card: each ``DR_TRAIN`` cell, built on meta and sharded there, with
+    the card: each ``DR_TRAIN`` cell (and ``DR_SERVE`` cell), built on
+    meta and sharded there, with
     only rank 0's blocks made real on the card, runs one step under the
     same fake group: its predicted peak (meta: arguments + temp) within
     10% or 512 MiB of ``max_memory_allocated`` over the card's allocation

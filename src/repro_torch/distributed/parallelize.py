@@ -36,6 +36,19 @@ reference's own ``shard_map`` paths do:
     axes (:func:`gather_seq`, whose backward is a reduce-scatter); in
     decode the KV cache's slots are split over "cache_seq"'s axes and the
     softmax is combined over them (``models/attention.py``);
+  * **a graph** (``gnn_rules``: nodes and edges over every mesh axis,
+    the batch axes) is the rank's block of node rows and its block of
+    edge rows, the edges keeping their global node ids: each layer
+    all-gathers the node states for the rank's edges (:func:`gather_sum`,
+    whose backward is a reduce-scatter) and reduce-scatters the rank's
+    messages, summed into every node, back to each rank's nodes
+    (:func:`scatter_sum`, whose backward is an all-gather), as GSPMD
+    lowers the reference's gather and segment sum (``models/gnn.py``);
+  * **an MoE's experts** where the all-to-all does not apply (decode, or
+    a batch the data axes do not divide) stay split over 'model': every
+    'model' rank holds the same tokens and dispatch, runs its own experts
+    on their slots and the partial outputs are summed over 'model'
+    (:func:`sum_shares`; ``models/moe.py``);
   * **losses** are shares: a rank's loss is its part of the whole
     batch's (a mean divides by every token's count, :func:`batch_sum`
     over the token axes), so the ranks' losses add up to the
@@ -43,9 +56,9 @@ reference's own ``shard_map`` paths do:
 
 Compute that no axis splits runs whole on every rank of that axis, with
 the same inputs, so its gradients agree there: the attention projections
-in decode (the rules leave "heads" whole), an MoE's experts where the
-all-to-all does not apply (gathered whole, ``models/moe.py``), a whole
-graph on every rank.
+in decode (the rules leave "heads" whole, as the reference's do), and an
+MoE's experts where they do not divide 'model' (gathered whole, as the
+reference's ``divisible_spec`` leaves them).
 
 Every collective is a raw ``torch.distributed`` call on this rank's plain
 tensors, in the autograd functions below. ``DTensor`` is only the
@@ -255,10 +268,16 @@ def _gather_dim(t: torch.Tensor, dim: int, g) -> torch.Tensor:
     return out.view(t.dtype).movedim(0, dim)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A reduction's operand: a 16-bit float widened to float32, any
+    other dtype as it is."""
+    return t.float() if t.dtype in _WIDE else t
+
+
 def _scatter_sum_dim(t: torch.Tensor, dim: int, g) -> torch.Tensor:
     """Sum over the group, each rank keeping its chunk of ``dim``."""
     n = dist.get_world_size(g)
-    x = t.movedim(dim, 0).float().contiguous()
+    x = _wide(t.movedim(dim, 0)).contiguous()
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     _reduce_scatter(out, x, group=g)
     return out.to(t.dtype).movedim(0, dim)
@@ -270,7 +289,7 @@ def _chunk(t: torch.Tensor, dim: int, g) -> torch.Tensor:
 
 
 def _sum(t: torch.Tensor, g) -> torch.Tensor:
-    x = t.float().clone()
+    x = _wide(t).clone()
     dist.all_reduce(x, group=g)
     return x.to(t.dtype)
 
@@ -407,6 +426,24 @@ class _GatherSum(torch.autograd.Function):
         return _scatter_sum_dim(grad, ctx.dim, ctx.g), None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter of ``dim`` forward, all-gather backward: every rank's
+    partial sum of a value split over the group (a graph's aggregate into
+    every node, each rank summing its own edges' messages), each rank
+    keeping its chunk; every chunk's gradient reaches every rank's
+    partial, so the backward gathers them all (the transpose of
+    :class:`_GatherSum`)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, g):
+        ctx.dim, ctx.g = dim, g
+        return _scatter_sum_dim(x, dim, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.dim, ctx.g), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` over equal dim-0 chunks, forward and
     backward (the exchange is its own transpose)."""
@@ -434,6 +471,18 @@ def reduce_from(x: torch.Tensor, g) -> torch.Tensor:
 
 def gather(x: torch.Tensor, dim: int, g) -> torch.Tensor:
     return x if g is None else _Gather.apply(x, dim, g)
+
+
+def gather_sum(x: torch.Tensor, dim: int, g) -> torch.Tensor:
+    return x if g is None else _GatherSum.apply(x, dim, g)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, g) -> torch.Tensor:
+    return x if g is None else _ScatterSum.apply(x, dim, g)
+
+
+def sum_shares(x: torch.Tensor, g) -> torch.Tensor:
+    return x if g is None else _SumShares.apply(x, g)
 
 
 def all_to_all(x: torch.Tensor, g) -> torch.Tensor:
@@ -475,8 +524,7 @@ def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """This rank's chunk of the sequence (``dim``) gathered whole over
     the sequence's axes, every chunk's gradient reduce-scattered back
     (:class:`_GatherSum`); ``x`` itself where the sequence is whole."""
-    g = seq_group()
-    return x if g is None else _GatherSum.apply(x, dim, g)
+    return gather_sum(x, dim, seq_group())
 
 
 def from_last_chunk(x: torch.Tensor) -> torch.Tensor:
@@ -513,7 +561,7 @@ def batch_mean(t: torch.Tensor) -> torch.Tensor:
     g = token_group()
     if g is None:
         return t
-    return _SumShares.apply(t, g) / dist.get_world_size(g)
+    return sum_shares(t, g) / dist.get_world_size(g)
 
 
 def batch_share(t: torch.Tensor) -> torch.Tensor:

@@ -24,14 +24,11 @@ bfloat16 weights for serving, ``lm_rules(..., long_context=(shape ==
 "long_500k"), decode=...)``, AdamW on ``cosine_schedule(3e-4, 100,
 1000)`` for the LMs and ``cosine_schedule(1e-4, 100, 1000)`` for the
 graph, row-wise Adagrad at 0.01 for DLRM and DeepFM and AdamW at 1e-3
-for DIN and BERT4Rec, a bfloat16 KV cache. Where the port's program
-splits less than the reference's, the cell says so in ``notes``:
-
-  * a decode cell's KV cache is split over the batch axes only (the
-    reference also splits its sequence over 'model', which the port's
-    decode does not implement);
-  * a graph is not partitioned: every rank runs the whole graph
-    (``models/gnn.py``), with its weights FSDP over the data axes.
+for DIN and BERT4Rec, a bfloat16 KV cache. A graph cell's rank holds its
+block of the padded graph's node rows and edge rows (``gnn_rules`` split
+both over every mesh axis; ``models/gnn.py``). Where the port's program
+differs from the reference's, the cell says so in ``notes`` (the
+retrieval cells).
 
 The reference's ``unroll`` argument is gone: it exists because XLA's
 cost analysis counts a scanned loop body once, so the reference compiles
@@ -392,8 +389,9 @@ def _build_gnn(arch: str, shape: str, mesh, multi_pod: bool) -> CellPlan:
                                 edge_in=spec["d_edge"],
                                 node_out=spec["node_out"])
     rules = sh.gnn_rules(mesh)
-    # the port does not partition a graph: every rank runs all of it
-    layout = par.Layout(rules, ())
+    # nodes and edges over every mesh axis: rank 0's blocks of both
+    axes = _split_axes(par.batch_axes_of(rules), mesh, N)
+    layout = par.Layout(rules, axes)
 
     def build(device, seed: int = 0) -> Program:
         device = torch.device(device)
@@ -407,7 +405,7 @@ def _build_gnn(arch: str, shape: str, mesh, multi_pod: bool) -> CellPlan:
              "senders": Leaf((E,), I32, N), "receivers": Leaf((E,), I32, N),
              "node_mask": Leaf((N,), BOOL), "edge_mask": Leaf((E,), BOOL),
              "target": Leaf((N, spec["node_out"]), F32)},
-            mesh, (), device, gen)
+            mesh, axes, device, gen)
         optimizer = opt_lib.adamw(opt_lib.cosine_schedule(1e-4, 100, 1000))
         return _train_program(model, p_shard, gnn.loss_fn, optimizer, graph,
                               g_shard, layout)
@@ -419,10 +417,7 @@ def _build_gnn(arch: str, shape: str, mesh, multi_pod: bool) -> CellPlan:
            + cfg.n_layers * (E * _mlp_flops([3 * d] + hid + [d])
                              + N * _mlp_flops([2 * d] + hid + [d]))
            + N * _mlp_flops([d] + hid + [cfg.node_out]))
-    return CellPlan(arch, shape, "train", rules, 3.0 * fwd, build,
-                    notes="the graph is not partitioned: every rank runs "
-                          "all of it (the reference splits nodes and edges "
-                          "over every mesh axis)")
+    return CellPlan(arch, shape, "train", rules, 3.0 * fwd, build)
 
 
 # ===========================================================================

@@ -25,7 +25,8 @@ the family's rules (``lm_rules``, ``gnn_rules``, ``recsys_rules``):
 FSDP over "data", the 'model' placements of the rules, the batch split
 over "data" and, for an LM, the sequence over 'model' (sequence
 parallelism: each 'model' rank trains on its chunk of every row, with
-context-parallel attention; a graph runs whole on every rank);
+context-parallel attention); the graph's nodes and edges split over
+every rank (each rank its block of the padded graph, ``models/gnn.py``);
 ``distributed/parallelize.py``. A sequence that 'model' does not divide
 is refused. Each rank sits on ``cuda:(rank mod
 cards)`` (or the CPU with ``--device cpu``); ranks talk over gloo where
@@ -184,8 +185,11 @@ def _train(args, kind: str, device, mesh=None, rank: int = 0):
         per_step = {"nodes_per_step": gspec.n_nodes,
                     "edges_per_step": gspec.n_edges}
 
+        # sharded: padded to the ranks, which then take their blocks
+        parts = 1 if mesh is None else mesh.size()
+
         def batch_fn(step: int) -> dict:
-            return pl.random_graph(gspec, step)
+            return gnn.pad_graph(pl.random_graph(gspec, step), parts)
     else:
         from repro_torch.models.recsys import RECSYS, RECSYS_AXES
         init_fn, _, loss_fn, _ = RECSYS[args.arch]
@@ -218,9 +222,7 @@ def _train(args, kind: str, device, mesh=None, rank: int = 0):
                  "recsys": sh.recsys_rules}[kind](mesh)
         t0 = time.perf_counter()
         par.shard_module(model, rules, axes)
-        # a graph is not partitioned: every rank runs the whole graph
-        layout = par.Layout(rules, () if kind == "gnn"
-                            else par.batch_axes_of(rules))
+        layout = par.Layout(rules, par.batch_axes_of(rules))
         per_step["shard_s"] = time.perf_counter() - t0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

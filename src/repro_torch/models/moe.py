@@ -45,9 +45,18 @@ the sequence over 'model'), capacity-sorts it for every expert
 expert's slots to its owner (``all_to_all_single`` over 'model'), runs
 its local experts on what it receives (their weights cast to the compute
 dtype, then gathered over the data axes), sends the outputs back and
-combines them for its own tokens. Otherwise the sequence is gathered
-whole (its gradient reduce-scattered back), the experts are gathered
-whole and the single-device path runs on every rank, each keeping its
+combines them for its own tokens. Otherwise (decode's one-token
+sequence, a batch the data axes do not divide) the sequence is gathered
+whole (its gradient reduce-scattered back) and every 'model' rank
+dispatches the same tokens alike; where the rules keep the experts on
+'model' (``n_experts`` divides it: the weights hold their block of the
+expert dim) each rank runs only its experts on their slots of the
+dispatch buffer and combines their weighted outputs for every token,
+and the partial outputs are summed over 'model' in float32 (an
+all-reduce, whose backward all-reduces the gradient): the reference's
+``_expert_ffn`` constrains the expert dim to 'model', and GSPMD runs
+the same program. Where they do not divide, the experts are gathered
+whole and the single-device path runs on every rank. Each rank keeps its
 chunk of the output. The shared experts run on the rank's chunk, as
 ``apply_mlp`` runs the dense MLP. The aux loss is the whole batch's (its
 frequencies and mean probabilities averaged over the ranks that split
@@ -189,16 +198,21 @@ def dispatch(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     return (x_pad[src[:-1]].reshape(B, E, C, D), (st, sg, slot, keep))
 
 
-def combine(expert_out: torch.Tensor, info, S: int) -> torch.Tensor:
-    """(B, E, C, D) expert outputs -> (B, S, D): each token's kept picks,
-    weighted by their gates, summed (``_combine_one_group`` per group)."""
+def combine(expert_out: torch.Tensor, info, S: int,
+            first: int = 0) -> torch.Tensor:
+    """(B, E_l, C, D) outputs of experts ``first`` .. ``first + E_l - 1``
+    -> (B, S, D): each token's kept picks among them, weighted by their
+    gates, summed (``_combine_one_group`` per group, where E_l is every
+    expert)."""
     st, sg, slot, keep = info
     B, E, C, D = expert_out.shape
     group = torch.arange(B, device=expert_out.device)[:, None]
     flat = expert_out.reshape(B * E * C, D)
-    picked = flat[(torch.clamp(slot, max=E * C - 1)
+    local = slot - first * C
+    mine = keep & (local >= 0) & (local < E * C)
+    picked = flat[(torch.clamp(local, 0, E * C - 1)
                    + E * C * group).reshape(-1)]
-    w = torch.where(keep, sg, 0.0).to(flat.dtype).reshape(-1, 1)
+    w = torch.where(mine, sg, 0.0).to(flat.dtype).reshape(-1, 1)
     out = expert_out.new_zeros((B * S, D))
     return out.index_add(0, (st + S * group).reshape(-1),
                          picked * w).reshape(B, S, D)
@@ -275,6 +289,21 @@ def _apply_moe_a2a(params, x: torch.Tensor, gates: torch.Tensor,
     return combine(back, info, T).reshape(Bl, Sl, D)
 
 
+def _local_experts(params, expert_in: torch.Tensor, info, S: int,
+                   act: str, axes: tuple[str, ...]) -> torch.Tensor:
+    """(B, S, D): this rank's experts (its block of the expert dim, split
+    over ``axes``) run on their slots of the dispatch buffer ``expert_in``
+    (the same on every rank of ``axes``), their picks combined for every
+    token, and the partial outputs summed over ``axes``."""
+    mesh = params["w_up"].device_mesh
+    w = _experts(params, expert_in.dtype, keep=axes)
+    n = w["w_up"].shape[0]
+    first = par.line_index(mesh, axes) * n
+    part = combine(_expert_ffn(w, expert_in[:, first:first + n], act),
+                   info, S, first)
+    return par.sum_shares(part, par.group(mesh, axes))
+
+
 def apply_moe(params, x: torch.Tensor, cfg: MoEConfig,
               act: str) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss). Groups = sequences. Sharded, x is
@@ -302,8 +331,15 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig,
     else:
         C = max(1, int(S * K / E * cfg.capacity_factor))
         expert_in, info = dispatch(xs, gates.to(x.dtype), idx, E, C)
-        out = combine(_expert_ffn(_experts(params, x.dtype), expert_in,
-                                  act), info, S)
+        # the axes the placement splits the experts over (the rules'
+        # "experts", where n_experts divides them): the tokens are the
+        # same on each of their ranks here
+        axes = par.split_dim_axes(params["w_up"], 0)
+        if axes:
+            out = _local_experts(params, expert_in, info, S, act, axes)
+        else:
+            out = combine(_expert_ffn(_experts(params, x.dtype), expert_in,
+                                      act), info, S)
         if seq:
             # this rank's chunk (the others' gradient is zero here; the
             # gather sums every rank's back)
