@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                     # every phase, one card
+    python3 chip_smoke.py --phases nccl       # build, world, nccl: 4 cards
+    python3 chip_smoke.py --phases nccl_full  # the launcher at m = 4,096
 
 Phases, each printing one JSON line (all must pass, or the script exits
 nonzero and prints no result):
@@ -328,7 +330,32 @@ nonzero and prints no result):
                repro_torch.examples.multipod_launch``, whose numbers must
                equal its record's.
 
-Phases 8–24 run after the lifecycle phase, the kernels phase (7) between
+ 25. nccl    — the meshes across four cards, one rank a card over nccl
+               (rank r on cuda:r, bound before it joins; it runs after
+               dist, and on fewer than four cards prints a line saying it
+               did not run and how many cards it saw): sharded retrieval
+               on (2, 2) as in dist, every batch equal to the one-process
+               kernel-path merge bit for bit and audited against the plain
+               path, K1, the planner and K2 launched on every card, equal
+               to the same ranks over gloo on one card, rank 0's batch ms
+               of both beside one device's (in turns); the launcher's
+               ``--devices 4`` (``4 ranks over nccl on 4 card(s)``); an
+               all-gather of 1 GiB of bf16, timed against NVLink; the
+               model_axis phase's checks on (2, 2) (both axes cross
+               cards); OLMo-1B at all 16 layers through the training
+               launcher's ``--devices 4`` ((4, 1), FSDP), its losses
+               within 1e-3 of one device and the step-4 checkpoint
+               resumed on one device within 1e-4, step ms, MFU, each
+               card's memory; DLRM's table row-sharded over the four
+               cards. Each part prints a line as it ends (``nccl_dist``,
+               ``nccl_all_gather``, ``nccl_model_axis``, ``nccl_train``,
+               ``nccl_dlrm``), then the ``nccl`` line sums them up.
+               ``--phases nccl`` runs only build, the scale world and this
+               phase; ``--phases nccl_full`` serves the launcher's
+               ``--devices 4`` at m = 4,096 (about 8.8M docs); both need
+               four cards and print no ``kernels`` line.
+
+Phases 8–25 run after the lifecycle phase, the kernels phase (7) between
 dist and encoder. Every row of the ``kernels`` line gives its launches in
 each phase (``path_launches``: serve, superblock, pipelined, lifecycle,
 frontend, dist (one count a rank), encoder, train_encoder, train_lm,
@@ -404,44 +431,24 @@ def _first_distinct(cand: np.ndarray, need: np.ndarray) -> np.ndarray:
     return np.where(keep, cand, -1)
 
 
-def make_corpus_fast(spec, rng_seed: int):
-    """(SparseDocs, doc_topic) with ``make_corpus``'s distributions at a
-    size its per-document loop cannot reach in a smoke run: the topic term
-    sets and document topics are drawn exactly as ``make_corpus`` draws
-    them from ``default_rng(spec.seed)``; each document's terms (Poisson
-    nnz clipped to [4, t_pad], topical share from the boosted topic
-    distribution, the rest zipf background, unique per document) and its
-    lognormal(0, 0.6) weights come from a vectorised stream of their own."""
-    import torch
-    from repro_torch.core.types import SparseDocs
-    from repro_torch.data.synthetic import _zipf_probs
-
-    V, T, n = spec.vocab, spec.t_pad, spec.n_docs
-    rng = np.random.default_rng(spec.seed)
-    base_p = _zipf_probs(V, spec.zipf_a)
-    topic_size = max(8, V // spec.n_topics)
-    topic_cdf = np.empty((spec.n_topics, V))
-    for z in range(spec.n_topics):
-        terms = rng.choice(V, topic_size, replace=False)
-        p = base_p.copy()
-        p[terms] *= spec.topic_boost
-        topic_cdf[z] = np.cumsum(p / p.sum())
-    doc_topic = rng.integers(0, spec.n_topics, n)
-    base_cdf = np.cumsum(base_p)
-
-    draw = np.random.default_rng(rng_seed)
-    tids = np.full((n, T), -1, np.int32)
-    tw = np.zeros((n, T), np.float32)
+def _draw_docs(spec, topic_cdf, base_cdf, doc_topic, seed, lo: int,
+               hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """Docs ``[lo, hi)`` of ``make_corpus_fast`` from the stream
+    ``default_rng(seed)``: (tids, weights), -1 / 0 padded."""
+    draw = np.random.default_rng(seed)
+    V, T = spec.vocab, spec.t_pad
+    tids = np.full((hi - lo, T), -1, np.int32)
+    tw = np.zeros((hi - lo, T), np.float32)
     chunk = 1 << 16
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        rows = hi - lo
+    for c_lo in range(lo, hi, chunk):
+        c_hi = min(c_lo + chunk, hi)
+        rows = c_hi - c_lo
         nnz = np.clip(draw.poisson(spec.doc_terms, rows), 4, T)
         n_top = np.rint(nnz * spec.topic_sharpness).astype(np.int64)
         n_bg = nnz - n_top
         u_top = draw.random((rows, 2 * int(n_top.max())))
         cand_top = np.empty(u_top.shape, np.int64)
-        topics = doc_topic[lo:hi]
+        topics = doc_topic[c_lo:c_hi]
         for z in np.unique(topics):
             sel = topics == z
             cand_top[sel] = np.searchsorted(topic_cdf[z], u_top[sel])
@@ -457,10 +464,55 @@ def make_corpus_fast(spec, rng_seed: int):
         keep = terms >= 0
         # left-align each row's terms
         pos = np.cumsum(keep, axis=1) - 1
-        r = np.repeat(np.arange(rows), keep.sum(axis=1))
-        tids[lo + r, pos[keep]] = terms[keep]
-        tw[lo + r, pos[keep]] = draw.lognormal(
+        r = np.repeat(np.arange(rows), keep.sum(axis=1)) + c_lo - lo
+        tids[r, pos[keep]] = terms[keep]
+        tw[r, pos[keep]] = draw.lognormal(
             0.0, 0.6, int(keep.sum())).astype(np.float32)
+    return tids, tw
+
+
+def make_corpus_fast(spec, rng_seed: int, parts: int = 1):
+    """(SparseDocs, doc_topic) with ``make_corpus``'s distributions at a
+    size its per-document loop cannot reach in a smoke run: the topic term
+    sets and document topics are drawn exactly as ``make_corpus`` draws
+    them from ``default_rng(spec.seed)``; each document's terms (Poisson
+    nnz clipped to [4, t_pad], topical share from the boosted topic
+    distribution, the rest zipf background, unique per document) and its
+    lognormal(0, 0.6) weights come from a vectorised stream of their own
+    (``parts`` > 1: ``parts`` equal blocks of documents, each from the
+    stream ``default_rng([rng_seed, part])``, drawn in parallel
+    processes)."""
+    import torch
+    from repro_torch.core.types import SparseDocs
+    from repro_torch.data.synthetic import _zipf_probs
+
+    V, n = spec.vocab, spec.n_docs
+    rng = np.random.default_rng(spec.seed)
+    base_p = _zipf_probs(V, spec.zipf_a)
+    topic_size = max(8, V // spec.n_topics)
+    topic_cdf = np.empty((spec.n_topics, V))
+    for z in range(spec.n_topics):
+        terms = rng.choice(V, topic_size, replace=False)
+        p = base_p.copy()
+        p[terms] *= spec.topic_boost
+        topic_cdf[z] = np.cumsum(p / p.sum())
+    doc_topic = rng.integers(0, spec.n_topics, n)
+    base_cdf = np.cumsum(base_p)
+    common = (spec, topic_cdf, base_cdf, doc_topic)
+    if parts == 1:
+        tids, tw = _draw_docs(*common, rng_seed, 0, n)
+    else:
+        import concurrent.futures
+        import multiprocessing
+        edges = np.linspace(0, n, parts + 1).astype(int)
+        with concurrent.futures.ProcessPoolExecutor(
+                parts, mp_context=multiprocessing.get_context("spawn")) as ex:
+            done = list(ex.map(_draw_docs, *zip(*[
+                (*common, [rng_seed, p], edges[p], edges[p + 1])
+                for p in range(parts)])))
+        tids = np.concatenate([d[0] for d in done])
+        tw = np.concatenate([d[1] for d in done])
+        del done
     mask = tids >= 0
     docs = SparseDocs(tids=torch.from_numpy(tids), tw=torch.from_numpy(tw),
                       mask=torch.from_numpy(mask), vocab=V)
@@ -859,22 +911,27 @@ def phase_golden() -> None:
         churned_matched=True)
 
 
-def scale_world():
+def scale_world(m: int | None = None, parts: int = 1):
+    """The MS MARCO geometry at ``m`` (None: ``M_CLUSTERS``) clusters of
+    ``DOCS_PER_CLUSTER`` docs (``make_corpus_fast`` in ``parts``), its
+    index on the card, and the phases' queries."""
     from repro_torch.configs.asc_splade import config
     from repro_torch.core.index import build_index
     from repro_torch.data.synthetic import CorpusSpec, make_queries
 
     geo = config()
-    n_docs = M_CLUSTERS * DOCS_PER_CLUSTER
+    m = m or M_CLUSTERS
+    n_docs = m * DOCS_PER_CLUSTER
     spec = CorpusSpec(n_docs=n_docs, vocab=geo.vocab, n_topics=N_TOPICS,
                       doc_terms=67, t_pad=geo.t_pad, query_terms=23,
                       q_pad=geo.q_pad, seed=SEED)
     t0 = time.perf_counter()
-    docs, doc_topic = make_corpus_fast(spec, rng_seed=SEED + 1)
+    docs, doc_topic = make_corpus_fast(spec, rng_seed=SEED + 1,
+                                       parts=parts)
     t_corpus = time.perf_counter() - t0
-    assign = topic_chunked_assign(doc_topic, M_CLUSTERS)
+    assign = topic_chunked_assign(doc_topic, m)
     t0 = time.perf_counter()
-    index = build_index(docs, assign, m=M_CLUSTERS, n_seg=geo.n_seg,
+    index = build_index(docs, assign, m=m, n_seg=geo.n_seg,
                         d_pad=geo.d_pad, seed=SEED + 2, device=DEVICE)
     t_build = time.perf_counter() - t0
     queries, _ = make_queries(spec, 8 * 64 + 3 * 2 + 64 + 16 + 8 + 64,
@@ -885,7 +942,8 @@ def scale_world():
         n_seg=index.n_seg, mean_nnz=float(docs.mask.sum(1).float().mean()),
         index_mb=round(index.nbytes() / 1e6, 1),
         doc_tids_mb=round(index.doc_tids.numel() * 2 / 1e6, 1),
-        seconds_corpus=round(t_corpus, 1), seconds_build=round(t_build, 1))
+        corpus_parts=parts, seconds_corpus=round(t_corpus, 1),
+        seconds_build=round(t_build, 1))
     return geo, index, queries, docs, fe_queries
 
 
@@ -2136,11 +2194,14 @@ def dist_batches(geo, queries) -> list[tuple[str, object, dict]]:
     return out
 
 
-def _dist_rank(rank: int, staged: str, batches: list, device_type: str):
-    """One rank of the dist phase: its cluster shard on the card, an
-    untimed warm-up (a 64- and a 2-query batch), then each batch timed on
-    the host clock, its launches counted from zero."""
+def _dist_rank(rank: int, staged: str, batches: list, device_type: str,
+               cards: int | None = None):
+    """One rank of the dist phase: its cluster shard on its card
+    (``cuda:(rank mod cards)``, ``cards`` None: every card), an untimed
+    warm-up (a 64- and a 2-query batch), then each batch timed on the
+    host clock, its launches counted from zero."""
     import torch
+    import torch.distributed as dist
     from repro_torch.core.search import SearchConfig
     from repro_torch.core.types import TOPK_FIELDS, QueryBatch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2150,7 +2211,7 @@ def _dist_rank(rank: int, staged: str, batches: list, device_type: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    dev = rank_device(rank, device_type)
+    dev = rank_device(rank, device_type, cards)
     mesh = make_host_mesh(DIST_SHAPE, ("data", "model"), dev.type)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2184,6 +2245,7 @@ def _dist_rank(rank: int, staged: str, batches: list, device_type: str):
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     return {"rank": rank, "coord": list(mesh.get_coordinate()),
+            "device": str(dev), "backend": dist.get_backend(),
             "local_m": local.m, "setup_s": setup_s, "batches": done,
             "peak_mb": peak / 1e6}
 
@@ -2225,34 +2287,26 @@ def dist_reference(index, q, cfg, plain: bool):
     return TopK(*(torch.cat(col) for col in zip(*halves)))
 
 
-def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
-    """Sharded retrieval on the one card: 4 ranks over gloo on a (2, 2)
-    ("data", "model") mesh, two cluster shards of m / 2 and two query
-    halves; every batch against ``dist_reference`` on the kernel path (bit
-    for bit) and on the plain path (``check_audited``), the safe batch
-    against single-device retrieval, the launches of every rank; then the
-    launcher's ``--devices 4`` on the saved world."""
-    import tempfile
+def dist_arrays(batches) -> list:
+    """``dist_batches`` as numpy arrays, for the spawned ranks."""
+    return [(name, tuple(getattr(q, f).numpy() for f in ("tids", "tw",
+                                                          "mask")), kw)
+            for name, q, kw in batches]
+
+
+def dist_check(index, batches, ranks, what: str) -> tuple[list, list,
+                                                           list]:
+    """Every batch of ``ranks`` (``_dist_rank``'s results) against
+    ``dist_reference`` on the kernel path (bit for bit, every rank) and
+    on the plain path (``check_audited``), the safe batch against
+    single-device retrieval; every rank launched ``DIST_NEED``. Returns
+    (the batches held, the audited counter flips) and each rank's
+    launches summed over its batches."""
+    import torch
 
     from repro_torch.core.search import SearchConfig, retrieve
     from repro_torch.core.types import TOPK_FIELDS, TopK
-    from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.serving.engine import stage_index
 
-    t_phase = time.perf_counter()
-    batches = dist_batches(geo, queries)
-    arrays = [(name, tuple(getattr(q, f).numpy() for f in ("tids", "tw",
-                                                            "mask")), kw)
-              for name, q, kw in batches]
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as staged:
-        stage_index(index, staged)
-        stage_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(_dist_rank, DIST_WORLD,
-                            (staged, arrays, torch.device(DEVICE).type),
-                            backend="gloo", timeout_s=600)
-        ranks_s = time.perf_counter() - t0
     held, flips = [], []
     for i, (name, q, kw) in enumerate(batches):
         cfg = SearchConfig(**kw)
@@ -2260,12 +2314,13 @@ def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
                                            ).to(DEVICE)
                        for f in TOPK_FIELDS}) for r in ranks]
         for r, other in enumerate(got[1:], 1):
-            check_identical(other, got[0], f"dist {name}: rank {r}")
+            check_identical(other, got[0], f"{what} {name}: rank {r}")
         k_log, p_log = [], []
         with recorded_decisions(k_log):
             kernel = dist_reference(index, q, cfg, plain=False)
         check_identical(got[0], kernel,
-                        f"dist {name} vs the one-process kernel-path merge")
+                        f"{what} {name} vs the one-process kernel-path "
+                        f"merge")
         with recorded_decisions(p_log):
             plain = dist_reference(index, q, cfg, plain=True)
         # output row i merges row r of walk (half, shard) for each shard
@@ -2276,26 +2331,33 @@ def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
                                      for i in range(q.n_queries))]
         flips += [{"batch": name, **f} for f in check_audited(
             got[0], plain, k_log, p_log, rows,
-            f"dist {name} vs the one-process plain merge")]
+            f"{what} {name} vs the one-process plain merge")]
         if name == "safe":
             single = retrieve(index, q, cfg, device=DEVICE)
             if not np.allclose(np.sort(got[0].scores.cpu().numpy(), 1),
                                np.sort(single.scores.cpu().numpy(), 1),
                                rtol=1e-4, atol=1e-4):
-                raise AssertionError("dist safe: sharded scores differ "
-                                     "from single-device retrieval")
+                raise AssertionError(f"{what} safe: sharded scores differ "
+                                     f"from single-device retrieval")
         held.append(name)
     for r in ranks:
         for b in r["batches"]:
             missing = [k for k in DIST_NEED.get(b["name"], ())
                        if b["launches"][k] == 0]
             if missing:
-                raise AssertionError(f"dist: rank {r['rank']} launched no "
-                                     f"{missing} on batch {b['name']}")
+                raise AssertionError(f"{what}: rank {r['rank']} launched "
+                                     f"no {missing} on batch {b['name']}")
     launches = [{k: sum(b["launches"][k] for b in r["batches"])
                  for k in r["batches"][0]["launches"]} for r in ranks]
+    return held, flips, launches
 
-    # the launcher, as a user starts it, on the cli phase's saved world
+
+def dist_cli(index, saved, backend: str, torch) -> dict:
+    """``python -m repro_torch.launch.serve --devices 4`` on the saved
+    world, as a user starts it: exit 0, its mesh, backend and summary
+    lines (``[serve] 4 ranks over <backend> on ...``)."""
+    import tempfile
+
     with tempfile.TemporaryDirectory() as tmp:
         metrics = os.path.join(tmp, "m.json")
         t0 = time.perf_counter()
@@ -2305,26 +2367,66 @@ def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
              str(index.vocab), "--n-docs", "2000", "--batch-size", "64",
              "--batches", "4", "--metrics-json", metrics],
             env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=tmp,
-            capture_output=True, text=True, timeout=300)
+            capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
         out = run.stdout
         if run.returncode != 0:
             raise AssertionError(f"dist cli: exit code {run.returncode}:\n"
                                  f"{out}{run.stderr}")
+        cards = torch.cuda.device_count()
         for want in ("[serve] sharded over {'data': 2, 'model': 2}",
-                     "[serve] 4 ranks over gloo on ",
+                     f"[serve] 4 ranks over {backend} on {cards} card(s)",
                      "[serve] 256 queries in 4 batches", "[serve] funnel"):
             if want not in out:
                 raise AssertionError(f"dist cli: no {want!r} line:\n{out}")
         served = json.loads(Path(metrics).read_text())
-    cli_lines = [ln for ln in out.splitlines()
-                 if ln.startswith(("[serve] sharded", "[serve] 4 ranks",
-                                   "[serve] funnel"))
-                 or re.match(r"\[serve\] \d+ queries in", ln)]
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("[serve] sharded", "[serve] 4 ranks",
+                               "[serve] funnel"))
+             or re.match(r"\[serve\] \d+ queries in", ln)]
+    return dict(cli_seconds=round(cli_s, 2),
+                cli_queries=served.get("serve_queries_total"), cli=lines)
+
+
+def ranks_backend(ranks: list, what: str) -> str:
+    """The one backend every rank of ``ranks`` reports having run."""
+    got = {r["backend"] for r in ranks}
+    if len(got) != 1:
+        raise AssertionError(f"{what}: ranks ran over {sorted(got)}")
+    return got.pop()
+
+
+def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
+    """Sharded retrieval on the one card: 4 ranks over gloo on a (2, 2)
+    ("data", "model") mesh, two cluster shards of m / 2 and two query
+    halves; every batch against ``dist_reference`` on the kernel path (bit
+    for bit) and on the plain path (``check_audited``), the safe batch
+    against single-device retrieval, the launches of every rank; then the
+    launcher's ``--devices 4`` on the saved world."""
+    import tempfile
+
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.serving.engine import stage_index
+
+    t_phase = time.perf_counter()
+    batches = dist_batches(geo, queries)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as staged:
+        stage_index(index, staged)
+        stage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dist_rank, DIST_WORLD,
+                            (staged, dist_arrays(batches),
+                             torch.device(DEVICE).type),
+                            backend="gloo", timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+    held, flips, launches = dist_check(index, batches, ranks, "dist")
+    cli = dist_cli(index, saved, backend_for(DIST_WORLD, DEVICE), torch)
     ms0 = {b["name"]: round(b["ms"], 3) for b in ranks[0]["batches"]}
-    log("dist", backend="gloo", mesh={"data": DIST_SHAPE[0],
-                                      "model": DIST_SHAPE[1]},
+    log("dist", backend=ranks_backend(ranks, "dist"),
+        mesh={"data": DIST_SHAPE[0], "model": DIST_SHAPE[1]},
         ranks=DIST_WORLD, cards=torch.cuda.device_count(),
+        rank_devices=[r["device"] for r in ranks],
         local_m=[r["local_m"] for r in ranks],
         coords=[r["coord"] for r in ranks], held=held,
         counter_flips_vs_plain=flips,
@@ -2332,8 +2434,7 @@ def phase_dist(geo, index, queries, fresh_ms, saved, torch) -> dict:
         peak_mb=[round(r["peak_mb"], 1) for r in ranks],
         setup_s=[round(r["setup_s"], 2) for r in ranks],
         stage_s=round(stage_s, 3), ranks_s=round(ranks_s, 2),
-        launches=launches, cli_seconds=round(cli_s, 2),
-        cli_queries=served.get("serve_queries_total"), cli=cli_lines,
+        launches=launches, **cli,
         seconds=round(time.perf_counter() - t_phase, 2))
     return {"launches": launches}
 
@@ -3852,18 +3953,19 @@ TS_DLRM_REPS = 20
 TS_MEM_POLL_S = 0.5
 
 
-def _card_memory_mb(stop=None, out: list | None = None) -> float | None:
-    """The card's used memory in MB (every process's: ``nvidia-smi``; in
-    a container its per-process list can show the card's total for each
-    process, so it does not part the ranks). With ``stop`` and ``out``,
-    poll it into ``out`` until ``stop`` is set."""
+def _card_memory_mb(stop=None, out: list | None = None) -> list | None:
+    """Each card's used memory in MB, in card order (every process's:
+    ``nvidia-smi``; in a container its per-process list can show the
+    card's total for each process, so it does not part ranks that share
+    a card). With ``stop`` and ``out``, poll it into ``out`` until
+    ``stop`` is set."""
     while True:
         try:
             got = subprocess.run(
                 ["nvidia-smi", "--query-gpu=memory.used",
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, timeout=10).stdout.split()
-            mb = float(got[0]) if got else None
+            mb = [float(x) for x in got] or None
         except (OSError, subprocess.SubprocessError, ValueError):
             mb = None
         if stop is None:
@@ -3891,11 +3993,13 @@ def _peak_mb(dev) -> float | None:
     return round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)
 
 
-def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
-    """One rank of the (1, 2) mesh holding half of DLRM's table (its rows
-    over 'model'): the lookup of a batch of 2,048 examples, timed, and of
-    ids in a slice of rows across the shard boundary against the slice
-    gathered whole."""
+def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int,
+                  n_ranks: int) -> dict:
+    """One rank of the (1, ``n_ranks``) mesh holding its block of DLRM's
+    table (its rows over 'model'): the lookup of a batch of 2,048
+    examples, timed, and of ids in a slice of rows across the middle
+    shard boundary against the slice gathered whole (each rank adds its
+    rows of the slice into zeros, one all-reduce: exact)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -3906,15 +4010,16 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
     from repro_torch.launch.mesh import make_host_mesh, rank_device
     from repro_torch.models.embedding import embedding_init, embedding_lookup
     dev = rank_device(rank, device_type)
-    mesh = make_host_mesh((1, TS_DEVICES), ("data", "model"), dev.type)
+    mesh = make_host_mesh((1, n_ranks), ("data", "model"), dev.type)
     rules = sh.recsys_rules(mesh)
     rows = cfg.n_sparse * cfg.vocab_per_table
     spec = sh.divisible_spec(rules, ("table_rows", "embed"),
                              (rows, cfg.embed_dim))
     pl_ = sh.placements(mesh, spec)
+    local_rows = rows // n_ranks
     t0 = time.perf_counter()
     block = embedding_init(torch.Generator(device=dev).manual_seed(
-        TS_SEED + rank), rows // TS_DEVICES, cfg.embed_dim, device=dev)
+        TS_SEED + rank), local_rows, cfg.embed_dim, device=dev)
     table = DTensor.from_local(block, mesh, pl_, run_check=False,
                                shape=(rows, cfg.embed_dim),
                                stride=(cfg.embed_dim, 1))
@@ -3932,18 +4037,21 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
             emb = embedding_lookup(table, ids)
         _sync(dev)
         lookup_ms = (time.perf_counter() - t0) / TS_DLRM_REPS * 1e3
-        # ids in [lo, lo + n_slice), half of it on each rank
+        # ids in [lo, lo + n_slice), across the middle shard boundary
         lo = rows // 2 - n_slice // 2
         g = torch.Generator().manual_seed(TS_SEED)
         sl_ids = (torch.randint(0, n_slice, ids.shape, generator=g)
                   + lo).to(dev)
         got = embedding_lookup(table, sl_ids)
-        mine = (block[-n_slice // 2:] if rank == 0
-                else block[:n_slice // 2]).contiguous()
-        whole = torch.empty((n_slice, cfg.embed_dim), device=dev)
-        dist.all_gather_into_tensor(whole, mine)
+        start = rank * local_rows
+        a, b_ = max(lo, start), min(lo + n_slice, start + local_rows)
+        whole = torch.zeros((n_slice, cfg.embed_dim), device=dev)
+        if b_ > a:
+            whole[a - lo:b_ - lo] = block[a - start:b_ - start]
+        dist.all_reduce(whole)
         same = bool(torch.equal(got, whole[sl_ids - lo]))
-    return dict(rank=rank, rows=rows, local_rows=block.shape[0],
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                rows=rows, local_rows=block.shape[0],
                 local_gb=round(block.numel() * 4 / 1e9, 2),
                 placements=[str(p) for p in pl_], draw_s=round(draw_s, 2),
                 lookup_ms=round(lookup_ms, 3), slice_equal=same,
@@ -3951,49 +4059,38 @@ def _ts_dlrm_rank(rank: int, device_type: str, cfg, n_slice: int) -> dict:
                 out_shape=list(emb.shape), peak_mb=_peak_mb(dev))
 
 
-def phase_train_sharded(torch, tl: dict) -> dict:
-    """Sharded training with its ranks sharing the card (gloo): OLMo-1B at
-    its published widths, cut to ``TS_LAYERS`` layers, through ``python
-    -m repro_torch.launch.train --preset full --layers 2 --devices 2
-    --steps 10`` (mesh (2, 1), FSDP, 8 x 512), stopped (its process group
-    killed) once the step-4 checkpoint it writes after step 4 is on disk:
-    a preemption at step 5. The launcher's ten steps run here on one
-    device, uninterrupted (its seed, batches and optimizer); the mesh's
-    steps 0-4 and the checkpoint (whole tensors) resumed on one device
-    for steps 5-9 against them (both within ``TS_LOSS_RTOL``); step ms
+def ts_olmo(torch, layers: int, devices: int, resume_rtol: float) -> dict:
+    """OLMo-1B at its published widths, cut to ``layers`` layers, through
+    ``python -m repro_torch.launch.train --preset full --layers <layers>
+    --devices <devices> --steps 10`` (mesh ``mesh_shape(devices)``, FSDP
+    over "data", 8 x 512), stopped (its process group killed) once the
+    step-4 checkpoint it writes after step 4 is on disk: a preemption at
+    step 5. The launcher's ten steps run here on one device,
+    uninterrupted (its seed, batches and optimizer); the mesh's steps 0-4
+    within ``TS_LOSS_RTOL`` of them, and the checkpoint (whole tensors)
+    resumed on one device for steps 5-9 within ``resume_rtol``. Step ms
     (from the times rank 0's step lines arrive), tokens/s, MFU, the
-    card's peak memory (``nvidia-smi``, polled) and each rank's (half of
-    what the card gained while the two symmetric ranks ran) beside
-    train_lm's. Then DLRM's 53.25 GB table row-sharded over the two
-    ranks: a 2,048-example lookup, timed, and ids across the shard
-    boundary against the rows gathered whole. (olmoe's all-to-all runs
-    in the model_axis phase.)"""
+    backend the launcher reports, each card's used memory before and at
+    its peak (``nvidia-smi``, polled) and the cards the ranks took."""
     import signal
     import tempfile
     import threading
 
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import LMDataSpec, lm_batch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import transformer as tf
     from repro_torch.training import optimizer as opt_lib
     from repro_torch.training.checkpoint import CheckpointManager
     from repro_torch.training.train_loop import TrainConfig, make_train_step
     from repro_torch.training.tree import module_tree
 
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    reset_launch_counts()
-    full = dataclasses.replace(get_arch(TS_ARCH).config(),
-                               n_layers=TS_LAYERS)
-    out: dict = {}
+    full = dataclasses.replace(get_arch(TS_ARCH).config(), n_layers=layers)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         step_dir = os.path.join(ckpt, f"step_{TS_RESUME_AT:010d}")
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               TS_ARCH, "--preset", "full", "--layers", str(TS_LAYERS),
-               "--devices", str(TS_DEVICES),
+               TS_ARCH, "--preset", "full", "--layers", str(layers),
+               "--devices", str(devices),
                "--steps", str(TS_STEPS), "--batch", str(TS_BATCH), "--seq",
                str(TS_SEQ), "--ckpt-dir", ckpt]
         stop, card = threading.Event(), []
@@ -4038,8 +4135,11 @@ def phase_train_sharded(torch, tl: dict) -> dict:
                  for m in [re.match(r"\[fit\] step (\d+): loss=(\S+)", ln)]
                  if m}
         text = [ln for _, ln in lines]
-        want_mesh = f"[train] mesh: {{'data': {TS_DEVICES}, 'model': 1}}"
-        if not text or text[0] != want_mesh \
+        shape = (devices, 1)
+        want_mesh = f"[train] mesh: {{'data': {devices}, 'model': 1}}"
+        ranks_line = re.match(rf"\[train\] {devices} ranks over (\w+) on ",
+                              text[1]) if len(text) > 1 else None
+        if not text or text[0] != want_mesh or ranks_line is None \
                 or sorted(steps)[:TS_RESUME_AT + 1] != list(
                     range(TS_RESUME_AT + 1)):
             raise AssertionError(f"train_sharded: the launcher's lines: "
@@ -4071,12 +4171,15 @@ def phase_train_sharded(torch, tl: dict) -> dict:
         t0 = time.perf_counter()
         model = launcher_init()
         init_s = time.perf_counter() - t0
-        state, want = opt.init(module_tree(model)), []
+        state, want, one_ms = opt.init(module_tree(model)), [], []
         for s in range(TS_STEPS):
-            model, state, mm = step(model, state, batch(s), s)
+            b = batch(s)
+            _sync(torch.device(DEVICE))
+            t0 = time.perf_counter()
+            model, state, mm = step(model, state, b, s)
             want.append(float(mm["loss"]))
+            one_ms.append((time.perf_counter() - t0) * 1e3)
         del model, state, mm
-        loss0 = want[0]
         # the mesh's step-4 checkpoint resumed on one device
         model = launcher_init()
         state = opt.init(module_tree(model))
@@ -4096,16 +4199,20 @@ def phase_train_sharded(torch, tl: dict) -> dict:
             resumed.append(float(mm["loss"]))
         del model, state, mm
         torch.cuda.empty_cache()
-    for s, (a, b) in enumerate(zip(resumed, want[TS_RESUME_AT + 1:]),
-                               TS_RESUME_AT + 1):
-        if not math.isclose(a, b, rel_tol=TS_LOSS_RTOL):
+    resume_err = [abs(a - b) / abs(b) for a, b in
+                  zip(resumed, want[TS_RESUME_AT + 1:])]
+    mesh_err = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    for s, e in enumerate(resume_err, TS_RESUME_AT + 1):
+        if e > resume_rtol:
             raise AssertionError(f"train_sharded: resumed step {s}'s loss "
-                                 f"{a} against one device's uninterrupted "
-                                 f"{b}")
-    for s, (a, b) in enumerate(zip(losses, want)):
-        if not math.isclose(a, b, rel_tol=TS_LOSS_RTOL):
-            raise AssertionError(f"train_sharded: step {s}'s loss {a} on "
-                                 f"the mesh against one device's {b}")
+                                 f"{resumed[s - TS_RESUME_AT - 1]} against "
+                                 f"one device's uninterrupted {want[s]} "
+                                 f"(rtol {resume_rtol})")
+    for s, e in enumerate(mesh_err):
+        if e > TS_LOSS_RTOL:
+            raise AssertionError(f"train_sharded: step {s}'s loss "
+                                 f"{losses[s]} on the mesh against one "
+                                 f"device's {want[s]}")
     # steps 1-4: the times between rank 0's step lines (step 0 warms up;
     # the checkpoint comes after step 4's line)
     step_s = sorted(steps[i][0] - steps[i - 1][0]
@@ -4113,41 +4220,82 @@ def phase_train_sharded(torch, tl: dict) -> dict:
     median_s = step_s[len(step_s) // 2]
     tokens = TS_BATCH * TS_SEQ
     flops = 6.0 * full.param_count() * tokens
-    out["olmo"] = dict(
-        launcher=" ".join(cmd[1:]), mesh={"data": TS_DEVICES, "model": 1},
-        layers=TS_LAYERS, depth_cut=f"{TS_LAYERS} of "
-        f"{get_arch(TS_ARCH).config().n_layers} layers, for time",
-        backend="gloo", stopped_after_s=round(run_s, 2),
-        losses=[round(x, 4) for x in losses],
-        one_device_loss0=round(loss0, 4), one_device_init_s=round(init_s, 2),
+    one_s = sorted(one_ms[1:])[len(one_ms[1:]) // 2] / 1e3
+    peak = ([max(c[i] for c in card) for i in range(len(card[0]))]
+            if card else None)
+    gained = ([round(p - b, 1) for p, b in zip(peak, before_mb)]
+              if peak and before_mb else None)
+    # the cards whose used memory rose by more than a GB while the
+    # launcher ran: where its ranks sat
+    used = [i for i, g in enumerate(gained or []) if g > 1000]
+    return dict(
+        launcher=" ".join(cmd[1:]), mesh=dict(zip(("data", "model"), shape)),
+        layers=layers, depth_cut=f"{layers} of "
+        f"{get_arch(TS_ARCH).config().n_layers} layers",
+        backend=ranks_line[1], launcher_line=text[1],
+        stopped_after_s=round(run_s, 2),
+        losses=[round(x, 4) for x in losses], loss_rel_err=mesh_err,
+        one_device_loss0=round(want[0], 4),
+        one_device_init_s=round(init_s, 2),
         resumed_at=TS_RESUME_AT,
         resumed_losses=[round(x, 4) for x in resumed],
+        resumed_rel_err=resume_err,
         one_device_losses=[round(x, 4) for x in want],
         checkpoint_mb=round(ckpt_mb, 1), restore_s=round(restore_s, 2),
-        loss_rtol=TS_LOSS_RTOL,
+        loss_rtol=TS_LOSS_RTOL, resume_rtol=resume_rtol,
         step_ms_median=round(median_s * 1e3, 2),
         step_ms=[round(x * 1e3, 2) for x in step_s],
         tokens_per_s=round(tokens / median_s, 1),
-        mfu=round(flops / median_s / BF16_FLOP_S, 4),
-        card_used_mb_before=before_mb,
-        card_used_mb_max=max(card) if card else None,
-        # the two ranks run the same shapes: each holds half of what the
-        # card gained while they ran
-        rank_used_mb=(round((max(card) - before_mb) / TS_DEVICES, 1)
-                      if card and before_mb is not None else None),
-        train_lm={k: v for k, v in tl["summary"].items() if k != "losses"})
+        # against the bf16 peak of the cards the ranks took
+        mfu=round(flops / median_s / (BF16_FLOP_S * max(1, len(used))), 4),
+        one_device_step_ms_median=round(one_s * 1e3, 2),
+        one_device_mfu=round(flops / one_s / BF16_FLOP_S, 4),
+        card_used_mb_before=before_mb, card_used_mb_max=peak,
+        card_gained_mb=gained, cards_used=used)
 
-    # DLRM's whole table, its rows split: two ranks on a (1, 2) mesh
+
+def ts_dlrm(torch, devices: int, backend: str) -> dict:
+    """DLRM's 53.25 GB table row-sharded over ``devices`` ranks on a
+    (1, ``devices``) mesh (``_ts_dlrm_rank``): every rank's lookup finite
+    and its slice across the middle boundary equal to the rows gathered
+    whole."""
     from repro_torch.configs import dlrm_mlperf
+    from repro_torch.launch.mesh import spawn_ranks
     t0 = time.perf_counter()
-    dl = spawn_ranks(_ts_dlrm_rank, TS_DEVICES,
-                     (DEVICE, dlrm_mlperf.config(), TS_DLRM_SLICE),
-                     timeout_s=900.0)
+    dl = spawn_ranks(_ts_dlrm_rank, devices,
+                     (DEVICE, dlrm_mlperf.config(), TS_DLRM_SLICE, devices),
+                     backend=backend, timeout_s=900.0)
     ranks_s = time.perf_counter() - t0
     if not all(r["slice_equal"] and r["finite"] for r in dl):
         raise AssertionError(f"train_sharded: the row-sharded lookup: {dl}")
-    out["dlrm_lookup"] = dict(ranks=dl)
-    out["lookup_s"] = round(ranks_s, 2)
+    return dict(ranks=dl, backend=ranks_backend(dl, "dlrm lookup"),
+                lookup_s=round(ranks_s, 2))
+
+
+def phase_train_sharded(torch, tl: dict) -> dict:
+    """Sharded training with its ranks sharing the card (gloo): OLMo-1B at
+    its published widths, cut to ``TS_LAYERS`` layers, on ``TS_DEVICES``
+    ranks through the launcher, preempted after its step-4 checkpoint and
+    resumed on one device (``ts_olmo``), beside train_lm's numbers (the
+    card's peak memory polled; each rank holds half of what the card
+    gained while the two symmetric ranks ran). Then DLRM's 53.25 GB table
+    row-sharded over the two ranks (``ts_dlrm``): a 2,048-example
+    lookup, timed, and ids across the shard boundary against the rows
+    gathered whole. (olmoe's all-to-all runs in the model_axis phase.)"""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    olmo = ts_olmo(torch, TS_LAYERS, TS_DEVICES, TS_LOSS_RTOL)
+    gained = olmo["card_gained_mb"]
+    olmo.update(
+        rank_used_mb=(round(gained[0] / TS_DEVICES, 1) if gained else None),
+        train_lm={k: v for k, v in tl["summary"].items() if k != "losses"})
+    out = {"olmo": olmo}
+    dl = ts_dlrm(torch, TS_DEVICES, "gloo")
+    out["dlrm_lookup"] = dict(ranks=dl["ranks"], backend=dl["backend"])
+    out["lookup_s"] = dl["lookup_s"]
     launches = launch_counts()
     log("train_sharded", **out, launches=launches,
         seconds=round(time.perf_counter() - t_phase, 2))
@@ -4265,7 +4413,9 @@ def ma_serve(dev, cfg, mesh=None, batch: int = MA_BATCH,
     experts a layer computes with) and gathered bytes. ``keep_state``
     returns the prefill's whole cache and logits (``state``, on the
     host); decode then starts from ``start`` (such a state) in place of
-    this run's own prefill."""
+    this run's own prefill. On a mesh whose "data" axis splits the batch,
+    every per-row result holds this rank's rows, ``rows`` (lo, hi) of the
+    batch."""
     import torch
 
     from repro_torch.distributed import parallelize as par
@@ -4291,8 +4441,13 @@ def ma_serve(dev, cfg, mesh=None, batch: int = MA_BATCH,
         "tokens"].to(dev)}
     with torch.no_grad():
         with par.use_layout(pre):
+            row_lo = 0
             if pre is not None:
-                toks, _ = par.local_batch(toks, pre)
+                toks, split = par.local_batch(toks, pre)
+                if split:
+                    row_lo = (par.line_index(mesh, split)
+                              * toks["tokens"].shape[0])
+            rows = (row_lo, row_lo + toks["tokens"].shape[0])
             offset = par.seq_offset(toks["tokens"].shape[1])
             pre_routes: list = []
             _sync(dev)
@@ -4374,7 +4529,7 @@ def ma_serve(dev, cfg, mesh=None, batch: int = MA_BATCH,
         decode_gathered_bytes=gathered, prefill_offset=offset,
         prefill_routing=_host_routes(pre_routes),
         decode_routing=[_host_routes(r) for r in dec_routes],
-        state=state, peak_mb=_peak_mb(dev))
+        state=state, rows=rows, peak_mb=_peak_mb(dev))
     del model, grown
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4652,20 +4807,22 @@ def _ma_gnn_rank(rank: int, dev, mesh, cfg, spec: dict) -> dict:
 
 
 def _ma_rank(rank: int, device_type: str, cfg, cfgs: dict,
-             batch: dict, gnn: tuple) -> dict:
-    """One rank of the (1, 2) mesh: OLMo (``ma_run``), OLMo's fp32
-    gradients (``_ma_olmo_grads``), then olmoe through the all-to-all
-    (rank 0 then runs olmoe's no-drop step on one device against the
-    gathered gradients), olmoe served with its experts split over
-    'model' in decode, and MeshGraphNet's nodes and edges over the mesh
-    (``_ma_gnn_rank``)."""
+             batch: dict, gnn: tuple, shape: tuple = MA_MESH) -> dict:
+    """One rank of the ``shape`` ("data", "model") mesh: OLMo
+    (``ma_run``), OLMo's fp32 gradients (``_ma_olmo_grads``), then olmoe
+    through the all-to-all (rank 0 then runs olmoe's no-drop step on one
+    device against the gathered gradients), olmoe served with its experts
+    split over 'model' in decode, and MeshGraphNet's nodes and edges over
+    the mesh (``_ma_gnn_rank``)."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh, rank_device
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = rank_device(rank, device_type)
-    mesh = make_host_mesh(MA_MESH, ("data", "model"), dev.type)
-    out = {"olmo": ma_run(dev, cfg, mesh),
+    mesh = make_host_mesh(shape, ("data", "model"), dev.type)
+    out = {"device": str(dev), "backend": dist.get_backend(),
+           "olmo": ma_run(dev, cfg, mesh),
            "olmo_grads": _ma_olmo_grads(rank, dev, cfg, mesh)}
     moe, whole = _ma_moe_rank(rank, dev, mesh, cfgs, batch)
     if rank == 0:
@@ -4796,6 +4953,21 @@ def _ma_serve_check(sv: dict, want: dict, dt: str, seq: int,
         serve_peak_mb=sv["peak_mb"]), ok
 
 
+def _ma_rows(sv: dict, rows: tuple) -> dict:
+    """``ma_serve``'s result cut to the batch rows ``rows`` (lo, hi): what
+    a rank whose "data" coordinate holds those rows returns."""
+    lo, hi = rows
+
+    def cut(routes: list) -> list:
+        return [{k: v[lo:hi] for k, v in r.items()} for r in routes]
+    return dict(sv, prefill_logits=sv["prefill_logits"][lo:hi],
+                decode_logits=[a[lo:hi] for a in sv["decode_logits"]],
+                tokens=[a[lo:hi] for a in sv["tokens"]],
+                prefill_routing=cut(sv["prefill_routing"]),
+                decode_routing=[cut(r) for r in sv["decode_routing"]],
+                rows=rows)
+
+
 def _rel(a: np.ndarray, b: np.ndarray) -> float:
     """The largest difference over the largest entry of ``b``."""
     return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
@@ -4807,10 +4979,27 @@ def _l2_rel(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def phase_model_axis(torch) -> dict:
-    """The LM's 'model' axis as ``lm_rules`` lays it, on two gloo ranks
-    that share the card, a ("data" 1, "model" 2) mesh: OLMo-1B at its
+    """The model_axis phase: ``model_axis_run`` on two gloo ranks that
+    share the card, a ("data" 1, "model" 2) mesh."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    out = model_axis_run(torch, MA_MESH, "gloo")
+    launches = launch_counts()
+    log("model_axis", **out, launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 2))
+    return {"launches": launches}
+
+
+def model_axis_run(torch, shape: tuple, backend: str) -> dict:
+    """The LM's 'model' axis as ``lm_rules`` lays it, on the ranks of a
+    ``shape`` ("data", "model") mesh over ``backend`` (the model_axis
+    phase: (1, 2), two gloo ranks on the card): OLMo-1B at its
     published widths, cut to ``MA_DEPTH`` layers (``ma_run``): two AdamW
-    steps sequence-parallel (each rank its 512 positions, K/V gathered,
+    steps sequence-parallel (each 'model' rank its chunk of the 1,024
+    positions, each "data" rank its rows, K/V gathered,
     weights gathered at use and their gradients reduce-scattered), a
     2 x 1,024 prefill (each rank's K/V chunk its cache block, the last
     token's logits on both), the cache regrown to ``MA_SLOTS`` slots split
@@ -4832,7 +5021,8 @@ def phase_model_axis(torch) -> dict:
     the kept share of picks of each source shard. Then olmoe served
     (``ma_serve`` at depth 2, no-drop capacity, 2 x ``MA_MOE_SEQ``): the
     prefill through the all-to-all, decode with each rank's experts only
-    (32 of 64 a layer, the partial outputs summed over 'model'), against
+    (64 / 'model' of the 64 a layer, the partial outputs summed over
+    'model'), against
     one device as OLMo's serving is (the prefill too within
     ``MA_BF16_L2`` in bf16, and a row whose routing flips at a near tie
     in bf16 left out, ``_ma_flips``; in bf16 the prompt's 256 tokens
@@ -4842,27 +5032,26 @@ def phase_model_axis(torch) -> dict:
     gathered bytes. Then MeshGraphNet at its
     published widths on ``MA_GNN_SHAPE``'s Cora geometry, its nodes and
     edges over the mesh (``ma_gnn``, ``_ma_gnn_rank``), each rank holding
-    half of the rows, in fp32 and in float64: step 0's fp32 loss and the
+    its block of the rows, in fp32 and in float64: step 0's fp32 loss and the
     float64 losses of step 0 and ``MA_GNN_STEPS`` AdamW steps within
     ``MA_GNN_LOSS_RTOL`` of one device's, step 0's float64 gradients each
     within ``MA_GRAD_RTOL`` of its leaf's largest entry of one device's
     (the fp32 gradients and the losses after fp32 updates reported: fp32
     rounding alone puts leaves of either side 1e-3 of their largest entry
-    from the float64 run at these widths)."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from the float64 run at these widths). Returns the fields of the
+    phase's line."""
     from repro_torch.launch.mesh import spawn_ranks
 
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    reset_launch_counts()
+    world = shape[0] * shape[1]
     cfgs = {"no_drop": _ma_moe_cfg(), "cf_1.25": _ma_moe_cfg(1.25)}
     vocab = cfgs["no_drop"].vocab
     moe_batch = _ma_batch(vocab, 0, MA_MOE_BATCH, MA_MOE_SEQ)
     t0 = time.perf_counter()
     olmo = _ma_cfg()
     gcfg, gspec = _ma_gnn_cfg()
-    ranks = spawn_ranks(_ma_rank, 2, (DEVICE, olmo, cfgs, moe_batch,
-                                      (gcfg, gspec)), timeout_s=900.0)
+    ranks = spawn_ranks(_ma_rank, world, (DEVICE, olmo, cfgs, moe_batch,
+                                          (gcfg, gspec), shape),
+                        backend=backend, timeout_s=900.0)
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     one = ma_run(torch.device(DEVICE), olmo)
@@ -4877,8 +5066,9 @@ def phase_model_axis(torch) -> dict:
                    train_peak_mb=got["peak_mb"])
         ok = max(loss_err) <= MA_RTOL
         for dt in MA_SERVE_DTYPES:
-            row[dt], good = _ma_serve_check(res["olmo"]["serve"][dt],
-                                            one["serve"][dt], dt, MA_SEQ)
+            sv = res["olmo"]["serve"][dt]
+            row[dt], good = _ma_serve_check(
+                sv, _ma_rows(one["serve"][dt], sv["rows"]), dt, MA_SEQ)
             ok &= good
         if not ok:
             bad.append(r)
@@ -4889,7 +5079,7 @@ def phase_model_axis(torch) -> dict:
             f"bf16 decode {MA_BF16_L2} in norm): {out_ranks}")
     # olmoe served, its experts split over 'model' in decode
     E = cfgs["no_drop"].moe.n_experts
-    half = E // MA_MESH[1]
+    half = E // shape[1]
     moe_one = {dt: ma_serve(torch.device(DEVICE), dataclasses.replace(
         cfgs["no_drop"], dtype=dt), None, MA_MOE_BATCH, MA_MOE_SEQ,
         MA_MOE_SLOTS) for dt in MA_SERVE_DTYPES}
@@ -4905,11 +5095,11 @@ def phase_model_axis(torch) -> dict:
                 # against one device's decode from this rank's prefill
                 # state (its whole cache and last logits)
                 row[dt], good = _ma_serve_check(
-                    sv, moe_one[dt], dt, MA_MOE_SEQ, bf16_prefill=True,
-                    decode=False)
+                    sv, _ma_rows(moe_one[dt], sv["rows"]), dt, MA_MOE_SEQ,
+                    bf16_prefill=True, decode=False)
                 cont = ma_serve(torch.device(DEVICE), cfg_dt, None,
-                                MA_MOE_BATCH, MA_MOE_SEQ, MA_MOE_SLOTS,
-                                start=sv["state"])
+                                sv["rows"][1] - sv["rows"][0], MA_MOE_SEQ,
+                                MA_MOE_SLOTS, start=sv["state"])
                 dec, good_dec = _ma_serve_check(sv, cont, dt, MA_MOE_SEQ,
                                                 prefill=False)
                 good &= good_dec
@@ -4921,8 +5111,8 @@ def phase_model_axis(torch) -> dict:
                     decode_against="one device from this rank's prefill "
                                    "state")
             else:
-                row[dt], good = _ma_serve_check(sv, moe_one[dt], dt,
-                                                MA_MOE_SEQ)
+                row[dt], good = _ma_serve_check(
+                    sv, _ma_rows(moe_one[dt], sv["rows"]), dt, MA_MOE_SEQ)
             widths = sv["decode_expert_widths"]
             row[dt].update(expert_bytes_held=sv["expert_bytes_held"],
                            one_device_expert_bytes=moe_one[dt][
@@ -4943,7 +5133,7 @@ def phase_model_axis(torch) -> dict:
     # MeshGraphNet's nodes and edges over the mesh
     gnn_res = [res["gnn"] for res in ranks]
     g0 = gnn_res[0]
-    n_rows = -(-gspec["n_nodes"] // 2), -(-gspec["n_edges"] // 2)
+    n_rows = -(-gspec["n_nodes"] // world), -(-gspec["n_edges"] // world)
     if not (g0["loss_rel_err"][0] <= MA_GNN_LOSS_RTOL
             and max(g0["loss64_rel_err"]) <= MA_GNN_LOSS_RTOL
             and g0["grad64_rel_err_max"] <= MA_GRAD_RTOL
@@ -4964,14 +5154,16 @@ def phase_model_axis(torch) -> dict:
         raise AssertionError(f"model_axis: the all-to-all MoE against one "
                              f"device: {res}")
     cfg = cfgs["no_drop"]
-    launches = launch_counts()
     from repro_torch.configs import get_arch
-    log("model_axis", arch=MA_ARCH, depth=olmo.n_layers,
+    return dict(
+        arch=MA_ARCH, depth=olmo.n_layers,
         depth_cut=f"{olmo.n_layers} of {get_arch(MA_ARCH).config().n_layers}"
         " layers, for time", d_model=olmo.d_model, d_ff=olmo.d_ff,
         vocab=olmo.vocab, dtype=olmo.dtype,
-        mesh=dict(zip(("data", "model"), MA_MESH)),
-        backend="gloo", batch=MA_BATCH, seq=MA_SEQ, steps=MA_STEPS,
+        mesh=dict(zip(("data", "model"), shape)),
+        backend=ranks_backend(ranks, "model_axis"),
+        rank_devices=[r["device"] for r in ranks], batch=MA_BATCH,
+        seq=MA_SEQ, steps=MA_STEPS,
         decode_steps=MA_DECODE, cache_slots=MA_SLOTS, rtol=MA_RTOL,
         bf16_decode_l2=MA_BF16_L2,
         ranks=out_ranks,
@@ -5037,9 +5229,313 @@ def phase_model_axis(torch) -> dict:
             **{k: g0[k] for k in (
                 "grad64_rel_err", "grad_rel_err", "fp32_mesh_vs_float64",
                 "fp32_one_device_vs_float64")}),
-        ranks_s=round(ranks_s, 2), launches=launches,
+        ranks_s=round(ranks_s, 2))
+
+
+# ---------------------------------------------------------------------------
+# nccl: the meshes across four cards, one rank a card
+# ---------------------------------------------------------------------------
+
+NC_WORLD = 4
+NC_LAYERS = 16              # OLMo-1B whole (TS_LAYERS cuts it for gloo)
+NC_RESUME_RTOL = 1e-4       # the resumed run against one device's
+NC_MESH = (2, 2)            # model_axis's ranks: both axes cross cards
+NC_BW_BYTES = 1 << 30       # the all-gather's output: 1 GiB of bf16
+NC_BW_REPS = 20
+NVLINK_BYTES_S = 450e9      # each way (the hopper-kernels guide's table)
+NC_FULL_M = 4096            # the launcher at MS MARCO's full m
+NC_FULL_PARTS = 16          # make_corpus_fast's parallel blocks there
+NC_FULL_BATCHES = 8
+
+
+def _nccl_bw_rank(rank: int, device_type: str, n_bytes: int,
+                  reps: int) -> dict:
+    """One rank of an all-gather of ``n_bytes`` of bf16 (each rank's
+    block ``n_bytes / world``), timed on the host clock to a synchronize
+    over ``reps`` after three warm-up calls; the result checked block by
+    block."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import rank_device
+    dev = rank_device(rank, device_type)
+    n = dist.get_world_size()
+    x = torch.full((n_bytes // 2 // n,), rank, dtype=torch.bfloat16,
+                   device=dev)
+    out = torch.empty(n_bytes // 2, dtype=torch.bfloat16, device=dev)
+    for _ in range(3):
+        dist.all_gather_into_tensor(out, x)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_gather_into_tensor(out, x)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    blocks = out.view(n, -1)
+    ok = bool(torch.equal(blocks, torch.arange(n, device=dev).to(
+        torch.bfloat16)[:, None].expand_as(blocks)))
+    return dict(rank=rank, device=str(dev), backend=dist.get_backend(),
+                ms=ms, ok=ok)
+
+
+def one_device_ms(index, batches) -> dict:
+    """Each of ``dist_batches``' batches served by ``retrieve`` on one
+    device, as a rank times its own (a warm-up 64- and 2-query batch,
+    then each batch on the host clock to a synchronize)."""
+    import torch
+
+    from repro_torch.core.search import SearchConfig, retrieve
+    dev = torch.device(DEVICE)
+    for name, q, kw in batches:
+        if name in ("b0", "q2"):
+            retrieve(index, q, SearchConfig(**kw), device=DEVICE)
+    out = {}
+    for name, q, kw in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        retrieve(index, q, SearchConfig(**kw), device=DEVICE)
+        _sync(dev)
+        out[name] = round((time.perf_counter() - t0) * 1e3, 3)
+    return out
+
+
+def _own_cards(ranks: list, what: str) -> list:
+    """The ranks' devices, each rank on a card of its own (rank r on
+    cuda:r)."""
+    got = [r["device"] for r in ranks]
+    if got != [f"cuda:{i}" for i in range(len(ranks))]:
+        raise AssertionError(f"{what}: the ranks sat on {got}")
+    return got
+
+
+def phase_nccl(geo, index, queries, saved, torch) -> dict | None:
+    """The port's meshes across ``NC_WORLD`` cards over nccl, rank r on
+    cuda:r (on a machine with fewer cards: a line saying so, nothing
+    held). Sharded retrieval (``_dist_rank``) on the (2, 2) mesh over
+    nccl: every batch of ``dist_batches`` equal to the one-process
+    kernel-path merge bit for bit and audited against the plain path
+    (``dist_check``), K1, the planner and K2 (K4 on the 2-query batch)
+    launched on every card; the same ranks over gloo on one card, equal
+    to the nccl ranks bit for bit; rank 0's batch ms of both beside one
+    device's, timed in turns (one device, nccl, gloo, one device); the
+    launcher's ``--devices 4`` on the saved world (``4 ranks over nccl
+    on 4 card(s)``). Then an all-gather of 1 GiB of bf16 over the four
+    cards, timed (bus bandwidth against NVLink's 450 GB/s each way);
+    ``model_axis_run`` on the (2, 2) mesh over nccl (OLMo-1B at
+    ``MA_DEPTH``, olmoe's all-to-all and split-expert decode,
+    MeshGraphNet on Cora) at the model_axis phase's tolerances; OLMo-1B
+    at all 16 layers through the training launcher's ``--devices 4``
+    ((4, 1), FSDP over nccl; ``ts_olmo``): the mesh's losses within
+    ``TS_LOSS_RTOL`` of one device's, the step-4 checkpoint resumed on
+    one device within ``NC_RESUME_RTOL`` of the uninterrupted run, step
+    ms, MFU and each card's memory; and DLRM's 53.25 GB table
+    row-sharded over the four cards (``ts_dlrm``). Each part prints its
+    line as it ends, then the ``nccl`` line sums them up. Any failure, of
+    nccl's init or a collective too, fails the phase; nothing is retried
+    over gloo."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serving.engine import stage_index
+
+    cards = torch.cuda.device_count()
+    if cards < NC_WORLD:
+        log("nccl", ran=False, cards=cards,
+            reason=f"needs {NC_WORLD} cards, one a rank (nccl never puts "
+                   f"two ranks on one card); this machine has {cards}")
+        return None
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # sharded retrieval: one device, nccl on four cards, gloo on one card,
+    # one device again
+    batches = dist_batches(geo, queries)
+    arrays = dist_arrays(batches)
+    one_ms = [one_device_ms(index, batches)]
+    with tempfile.TemporaryDirectory() as staged:
+        stage_index(index, staged)
+        t0 = time.perf_counter()
+        over_nccl = spawn_ranks(_dist_rank, NC_WORLD,
+                                (staged, arrays, DEVICE), backend="nccl",
+                                timeout_s=600)
+        nccl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_one = spawn_ranks(_dist_rank, NC_WORLD,
+                             (staged, arrays, DEVICE, 1), backend="gloo",
+                             timeout_s=600)
+        gloo_s = time.perf_counter() - t0
+    one_ms.append(one_device_ms(index, batches))
+    if ranks_backend(over_nccl, "nccl dist") != "nccl" \
+            or ranks_backend(on_one, "gloo dist") != "gloo":
+        raise AssertionError("nccl dist: the ranks ran over another backend")
+    devices = _own_cards(over_nccl, "nccl dist")
+    if {r["device"] for r in on_one} != {"cuda:0"}:
+        raise AssertionError(f"nccl dist: the gloo ranks sat on "
+                             f"{[r['device'] for r in on_one]}")
+    held, flips, launches = dist_check(index, batches, over_nccl,
+                                       "nccl dist")
+    for i, (name, _, _) in enumerate(batches):
+        for f, v in over_nccl[0]["batches"][i]["fields"].items():
+            if not np.array_equal(v, on_one[0]["batches"][i]["fields"][f]):
+                raise AssertionError(f"nccl dist {name}: {f} over nccl "
+                                     f"differs from gloo on one card")
+    cli = dist_cli(index, saved, "nccl", torch)
+    out = {}
+    out["dist"] = part = dict(
+        mesh={"data": DIST_SHAPE[0], "model": DIST_SHAPE[1]},
+        rank_devices=devices, held=held, counter_flips_vs_plain=flips,
+        equal_to_gloo_on_one_card=True,
+        batch_ms_rank0={"nccl": {b["name"]: round(b["ms"], 3)
+                                 for b in over_nccl[0]["batches"]},
+                        "gloo_one_card": {b["name"]: round(b["ms"], 3)
+                                          for b in on_one[0]["batches"]},
+                        "one_device": one_ms},
+        peak_mb={"nccl": [round(r["peak_mb"], 1) for r in over_nccl],
+                 "gloo_one_card": [round(r["peak_mb"], 1) for r in on_one]},
+        setup_s=[round(r["setup_s"], 2) for r in over_nccl],
+        ranks_s={"nccl": round(nccl_s, 2), "gloo_one_card": round(gloo_s, 2)},
+        launches=launches, **cli)
+    # each part's line as it ends: a later part's failure keeps them
+    log("nccl_dist", **part)
+
+    bw = spawn_ranks(_nccl_bw_rank, NC_WORLD,
+                     (DEVICE, NC_BW_BYTES, NC_BW_REPS), backend="nccl",
+                     timeout_s=300)
+    if not all(r["ok"] for r in bw):
+        raise AssertionError(f"nccl all-gather: {bw}")
+    ms = max(r["ms"] for r in bw)
+    bus = NC_BW_BYTES * (NC_WORLD - 1) / NC_WORLD / (ms / 1e3)
+    out["all_gather"] = part = dict(
+        bytes=NC_BW_BYTES, dtype="bfloat16", reps=NC_BW_REPS,
+        rank_devices=_own_cards(bw, "nccl all-gather"),
+        ms=[round(r["ms"], 4) for r in bw],
+        alg_gb_s=round(NC_BW_BYTES / (ms / 1e3) / 1e9, 1),
+        bus_gb_s=round(bus / 1e9, 1),
+        nvlink_each_way_gb_s=NVLINK_BYTES_S / 1e9,
+        bus_share_of_nvlink=round(bus / NVLINK_BYTES_S, 3))
+    log("nccl_all_gather", **part)
+
+    torch.cuda.empty_cache()
+    out["model_axis"] = ma = model_axis_run(torch, NC_MESH, "nccl")
+    if ma["backend"] != "nccl" or ma["rank_devices"] != [
+            f"cuda:{i}" for i in range(NC_WORLD)]:
+        raise AssertionError(f"nccl model_axis: {ma['backend']} on "
+                             f"{ma['rank_devices']}")
+    log("nccl_model_axis", **ma)
+    torch.cuda.empty_cache()
+    olmo = ts_olmo(torch, NC_LAYERS, NC_WORLD, NC_RESUME_RTOL)
+    if olmo["backend"] != "nccl" or olmo["cards_used"] != list(
+            range(NC_WORLD)):
+        raise AssertionError(f"nccl train: {olmo['launcher_line']}, cards "
+                             f"used {olmo['cards_used']}")
+    # one rank a card: each card's gain is its rank's
+    olmo["rank_used_mb"] = olmo["card_gained_mb"][:NC_WORLD]
+    out["train"] = olmo
+    log("nccl_train", **olmo)
+    out["dlrm_lookup"] = dl = ts_dlrm(torch, NC_WORLD, "nccl")
+    _own_cards(dl["ranks"], "nccl dlrm lookup")
+    log("nccl_dlrm", **dl)
+    d, t = out["dist"], out["train"]
+    log("nccl", ran=True, cards=cards, ranks=NC_WORLD,
+        dist=dict(mesh=d["mesh"], rank_devices=d["rank_devices"],
+                  held_bit_for_bit=d["held"],
+                  audited_against_plain=d["held"],
+                  counter_flips_vs_plain=d["counter_flips_vs_plain"],
+                  equal_to_gloo_on_one_card=True, launches=d["launches"],
+                  batch_ms_rank0=d["batch_ms_rank0"],
+                  launcher=d["cli"]),
+        all_gather_bus_gb_s=out["all_gather"]["bus_gb_s"],
+        train=dict(layers=t["layers"], mesh=t["mesh"], backend=t["backend"],
+                   cards_used=t["cards_used"], loss_rel_err=t["loss_rel_err"],
+                   loss_rtol=t["loss_rtol"],
+                   resumed_rel_err=t["resumed_rel_err"],
+                   resume_rtol=t["resume_rtol"],
+                   step_ms_median=t["step_ms_median"], mfu=t["mfu"],
+                   rank_used_mb=t["rank_used_mb"]),
+        dlrm_lookup_ms=[r["lookup_ms"] for r in dl["ranks"]],
+        model_axis=dict(
+            mesh=ma["mesh"], rank_devices=ma["rank_devices"],
+            olmo_loss_rel_err=[r["loss_rel_err"] for r in ma["ranks"]],
+            olmo_fp32_grad_rel_err_max=ma["olmo_fp32_grads"][
+                "grad_rel_err_max"],
+            olmoe_a2a_grad_rel_err_max=ma["olmoe_a2a"]["grad_rel_err_max"],
+            meshgraphnet_grad64_rel_err_max=max(
+                ma["meshgraphnet"]["grad64_rel_err"])),
         seconds=round(time.perf_counter() - t_phase, 2))
     return {"launches": launches}
+
+
+def phase_nccl_full(torch) -> None:
+    """The serving launcher at MS MARCO's full m (``NC_FULL_M`` = 4,096
+    clusters, about 8.8M docs) over nccl on four cards: the world drawn
+    (``make_corpus_fast`` in ``NC_FULL_PARTS`` blocks) and built on the
+    card, saved, and served by ``python -m repro_torch.launch.serve
+    --devices 4 --load-dir`` (two cluster shards of m / 2, two query
+    halves): exit 0, its mesh, ``4 ranks over nccl on 4 card(s)``, the
+    summary and funnel lines; each card's used memory (polled) while it
+    ran; one device's batch ms on the same index beside it (64-query
+    batches of the world's own queries)."""
+    import tempfile
+    import threading
+
+    from repro_torch.lifecycle import save_index
+
+    cards = torch.cuda.device_count()
+    if cards < NC_WORLD:
+        raise AssertionError(f"nccl_full: needs {NC_WORLD} cards, one a "
+                             f"rank; this machine has {cards}")
+    t_phase = time.perf_counter()
+    geo, index, queries, docs, _ = scale_world(NC_FULL_M, NC_FULL_PARTS)
+    del docs
+    batches = [b for b in dist_batches(geo, queries) if b[0] != "safe"]
+    one_ms = one_device_ms(index, batches)
+    log("nccl_full_one_device", m=NC_FULL_M, batch_ms=one_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.path.join(tmp, "index")
+        t0 = time.perf_counter()
+        save_index(saved, index, epoch=0)
+        save_s = time.perf_counter() - t0
+        vocab, index_mb = index.vocab, index.nbytes() / 1e6
+        del index
+        torch.cuda.empty_cache()
+        stop, card = threading.Event(), []
+        before = _card_memory_mb()
+        poll = threading.Thread(target=_card_memory_mb, args=(stop, card),
+                                daemon=True)
+        poll.start()
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve",
+                 "--device", DEVICE, "--devices", str(NC_WORLD),
+                 "--load-dir", saved, "--vocab", str(vocab), "--n-docs",
+                 "2000", "--batch-size", "64", "--batches",
+                 str(NC_FULL_BATCHES), "--metrics-json",
+                 os.path.join(tmp, "m.json")],
+                env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=tmp,
+                capture_output=True, text=True, timeout=1500)
+        finally:
+            stop.set()
+            poll.join()
+        cli_s = time.perf_counter() - t0
+    out = run.stdout
+    if run.returncode != 0:
+        raise AssertionError(f"nccl_full: exit code {run.returncode}:\n"
+                             f"{out}{run.stderr[-3000:]}")
+    for want in ("[serve] sharded over {'data': 2, 'model': 2}",
+                 f"[serve] {NC_WORLD} ranks over nccl on {cards} card(s)",
+                 f"[serve] {64 * NC_FULL_BATCHES} queries in "
+                 f"{NC_FULL_BATCHES} batches", "[serve] funnel"):
+        if want not in out:
+            raise AssertionError(f"nccl_full: no {want!r} line:\n{out}")
+    peak = ([max(c[i] for c in card) for i in range(len(card[0]))]
+            if card else None)
+    log("nccl_full", m=NC_FULL_M, n_docs=NC_FULL_M * DOCS_PER_CLUSTER,
+        index_mb=round(index_mb, 1), shards=DIST_SHAPE[0],
+        save_s=round(save_s, 1), launcher_s=round(cli_s, 1),
+        lines=[ln for ln in out.splitlines() if ln.startswith("[serve]")],
+        one_device_batch_ms=one_ms, card_used_mb_before=before,
+        card_used_mb_max=peak,
+        seconds=round(time.perf_counter() - t_phase, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -5882,8 +6378,33 @@ def finish_kernel_rows(rows: list[dict], later: dict, ra: dict) -> None:
                           if k in ra["kernels"]}
 
 
+PHASE_SETS = ("all", "nccl", "nccl_full")
+
+
+def selected_phases(argv: list) -> str:
+    """``--phases`` (one of ``PHASE_SETS``; default ``all``)."""
+    if "--phases" not in argv:
+        return "all"
+    i = argv.index("--phases")
+    got = argv[i + 1] if i + 1 < len(argv) else None
+    if got not in PHASE_SETS:
+        raise SystemExit(f"chip_smoke: --phases takes one of {PHASE_SETS}, "
+                         f"not {got!r}")
+    return got
+
+
+def card_lines(card: str, torch) -> None:
+    """The contract's last two lines: the card's name and power limit,
+    then the result."""
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
     t_script = time.perf_counter()
+    phases = selected_phases(sys.argv[1:])
     # cuBLAS reads this when it first makes its handle; the train_encoder
     # phase's deterministic resume check needs it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5895,11 +6416,31 @@ def main() -> int:
         print(f"chip_smoke: the repo's src/repro_torch and {GOLDEN.name} "
               f"must sit beside this script", file=sys.stderr)
         return 2
+    if phases != "all" and torch.cuda.device_count() < NC_WORLD:
+        print(f"chip_smoke: --phases {phases} needs {NC_WORLD} cards; this "
+              f"machine has {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(SRC))
     # full fp32 for every GEMM (K1's plain version refuses TF32, and the
     # library yardstick must compute the same bound)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_build(torch)
+    import tempfile
+    if phases == "nccl":
+        geo, index, queries, docs, _ = scale_world()
+        del docs
+        from repro_torch.lifecycle import save_index
+        with tempfile.TemporaryDirectory() as world_dir:
+            saved = os.path.join(world_dir, "index")
+            save_index(saved, index, epoch=0)
+            phase_nccl(geo, index, queries, saved, torch)
+    elif phases == "nccl_full":
+        phase_nccl_full(torch)
+    if phases != "all":
+        log("total", phases=phases,
+            seconds=round(time.perf_counter() - t_script, 1))
+        card_lines(card, torch)
+        return 0
     phase_golden()
     geo, index, queries, docs, fe_queries = scale_world()
     engine, launches, captured, fresh_ms = phase_serve(geo, index, queries,
@@ -5910,11 +6451,12 @@ def main() -> int:
     fe = phase_frontend(geo, engine, index, fe_queries, torch)
     phase_cluster(geo, index, queries, docs, torch)
     del docs
-    import tempfile
     with tempfile.TemporaryDirectory() as world_dir:
         saved = os.path.join(world_dir, "index")
         phase_cli(index, fe, saved, torch)
         dist = phase_dist(geo, index, queries, fresh_ms, saved, torch)
+        # on fewer than four cards: a line saying it did not run
+        phase_nccl(geo, index, queries, saved, torch)
     # before any model phase: its profiler pass is then the process's
     # first since the retrieval phases (the moe phase profiles decode)
     rows = phase_kernels(index, queries, captured, launches, sb, pl, lc, fe,
@@ -5938,10 +6480,7 @@ def main() -> int:
         phase_profile(pl["engine"], queries, torch)
     log("total", seconds=round(time.perf_counter() - t_script, 1))
     print(json.dumps({"kernels": rows}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    card_lines(card, torch)
     return 0
 
 

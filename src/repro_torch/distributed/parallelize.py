@@ -289,7 +289,9 @@ def _chunk(t: torch.Tensor, dim: int, g) -> torch.Tensor:
 
 
 def _sum(t: torch.Tensor, g) -> torch.Tensor:
-    x = _wide(t).clone()
+    # a row-major copy: nccl refuses a strided operand (a gradient
+    # reduce-scattered over another dim arrives moved back, strided)
+    x = _wide(t).clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, group=g)
     return x.to(t.dtype)
 
@@ -493,7 +495,7 @@ def max_over(x: torch.Tensor, g) -> torch.Tensor:
     """The elementwise maximum over the group (no gradient)."""
     if g is None:
         return x
-    x = x.detach().float().clone()
+    x = x.detach().float().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
     return x
 

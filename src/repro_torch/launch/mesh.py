@@ -5,7 +5,11 @@ Where JAX lays one program over a mesh of devices, the port runs one
 process a rank: :func:`spawn_ranks` starts them (start method ``spawn``,
 a ``file://`` rendezvous in a temporary directory, so no port is fixed),
 each rank joins the default process group, and :func:`make_host_mesh`
-names the group's axes with a ``DeviceMesh``. Rank ``r`` sits at
+names the group's axes with a ``DeviceMesh``. The group runs over nccl
+when every rank owns a card (:func:`backend_for`; rank ``r`` on
+``cuda:r``, bound before it joins), else over gloo (the CPU, or ranks
+sharing cards); nothing falls back from one to the other, and a rank
+whose collective waits past the group's timeout fails. Rank ``r`` sits at
 ``numpy.unravel_index(r, shape)``, the row-major order of ``jax.make_mesh``
 over the same device list.
 
@@ -22,6 +26,7 @@ import time.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import os
 import queue
 import tempfile
@@ -66,25 +71,58 @@ def fake_world(world_size: int, rank: int = 0):
         dist.destroy_process_group()
 
 
-def rank_device(rank: int, device_type: str) -> torch.device:
-    """The device a rank searches on: ``cuda:(rank mod cards)``, so ranks
-    share cards when there are fewer cards than ranks. A rank asked for
-    ``cuda`` on a machine without a card raises."""
+def backend_for(world: int, device_type: str) -> str:
+    """The backend a mesh of ``world`` ranks on ``device_type`` runs
+    over: nccl exactly when every rank owns a card (nccl never puts two
+    ranks on one card), else gloo (the CPU, or ranks sharing cards)."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, device_type: str,
+                cards: int | None = None) -> torch.device:
+    """The device a rank runs on: ``cuda:(rank mod cards)`` (``cards``
+    None: every card of the machine), so ranks share cards when there are
+    fewer cards than ranks. Under nccl each rank owns ``cuda:rank``,
+    which :func:`spawn_ranks` bound before the rank joined its group;
+    this agrees with it. A rank asked for ``cuda`` on a machine without
+    a card raises."""
     if device_type == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"rank {rank} was asked for {device_type!r} and "
                            f"no CUDA device is available")
-    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    dev = torch.device("cuda", rank % (cards or torch.cuda.device_count()))
+    if (dist.is_initialized() and dist.get_backend() == "nccl"
+            and dev.index != torch.cuda.current_device()):
+        raise RuntimeError(f"rank {rank} is bound to cuda:"
+                           f"{torch.cuda.current_device()} for nccl and "
+                           f"was asked for {dev}")
     torch.cuda.set_device(dev)
     return dev
 
 
+# a rank stuck in a collective (or in joining its group) fails after
+# this long instead of holding its peers and the caller: the process
+# group's timeout, which nccl's watchdog enforces by aborting the rank
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
 def _rank_main(rank: int, world: int, init_method: str, backend: str,
-               fn, args: tuple, results) -> None:
+               fn, args: tuple, results,
+               timeout_s: float = COLLECTIVE_TIMEOUT_S) -> None:
     try:
-        dist.init_process_group(backend, init_method=init_method,
-                                world_size=world, rank=rank)
+        kw = {}
+        if backend == "nccl":
+            # the card first: a communicator built before set_device
+            # lands on cuda:0 for every rank
+            dev = torch.device("cuda", rank)
+            torch.cuda.set_device(dev)
+            kw["device_id"] = dev
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s), **kw)
         try:
             out = fn(rank, *args)
         finally:
@@ -113,7 +151,8 @@ def _failures(results, rank: int, trace: str, wait_s: float = 2.0) -> str:
 
 
 def spawn_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
-                timeout_s: float | None = 120.0) -> list:
+                timeout_s: float | None = 120.0,
+                collective_timeout_s: float = COLLECTIVE_TIMEOUT_S) -> list:
     """Run ``fn(rank, *args)`` in ``world`` fresh processes that share one
     process group; returns each rank's result (picklable, on the CPU), in
     rank order.
@@ -121,14 +160,23 @@ def spawn_ranks(fn, world: int, args: tuple = (), *, backend: str = "gloo",
     ``fn`` must be importable by name (spawned processes start from a
     fresh import). The first rank that raises or dies, or ``timeout_s``
     (None: no limit) without every result, kills all ranks and raises
-    here: a rank left waiting in a collective never holds the caller."""
+    here: a rank left waiting in a collective never holds the caller.
+    ``collective_timeout_s`` is the process group's timeout: a collective
+    (or the group's join) that waits longer fails its rank. Under
+    ``backend="nccl"`` rank ``r`` owns ``cuda:r``, bound before it joins
+    the group; a world larger than the machine's cards raises here."""
+    if backend == "nccl" and torch.cuda.device_count() < world:
+        raise ValueError(f"nccl gives each of {world} ranks a card of its "
+                         f"own; this machine has "
+                         f"{torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, init, backend, fn, args,
-                                   results), daemon=True)
+                                   results, collective_timeout_s),
+                             daemon=True)
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -379,7 +379,7 @@ def _serve_sharded(args, index, spec, doc_topic, cfg, dev) -> None:
 
     import torch
 
-    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
     from repro_torch.serving.engine import stage_index
 
     if args.churn or args.save_dir or args.budget_ms:
@@ -387,7 +387,7 @@ def _serve_sharded(args, index, spec, doc_topic, cfg, dev) -> None:
               "ignored on the distributed (--devices) path")
     world = args.devices // 2 * 2
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-    backend = "nccl" if cards >= world else "gloo"
+    backend = backend_for(world, dev.type)
     if dev.type == "cuda":
         # ranks only load the library: concurrent nvcc builds into the
         # same directory never race

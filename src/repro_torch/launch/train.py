@@ -30,9 +30,10 @@ every rank (each rank its block of the padded graph, ``models/gnn.py``);
 ``distributed/parallelize.py``. A sequence that 'model' does not divide
 is refused. Each rank sits on ``cuda:(rank mod
 cards)`` (or the CPU with ``--device cpu``); ranks talk over gloo where
-they share a card or run on the CPU, over nccl where each owns a card.
-Rank 0 prints the reference's lines; the metrics file adds the mesh and
-each rank's peak memory.
+they share a card or run on the CPU, over nccl where each owns a card
+(``[train] N ranks over <backend> on ...`` after the mesh line).
+Rank 0 prints the reference's lines; the metrics file adds the mesh, the
+backend and each rank's peak memory.
 
 ``asc-splade`` has no train step (exit 2, as the reference's).
 ``--grad-compression`` reaches ``TrainConfig`` and, as in the reference
@@ -108,19 +109,20 @@ def main(argv=None) -> None:
 def _sharded(args, kind: str) -> None:
     import torch
 
-    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
     shape = mesh_shape(args.devices)
     print(f"[train] mesh: {dict(zip(('data', 'model'), shape))}",
           flush=True)
-    own_cards = (args.device == "cuda"
-                 and torch.cuda.device_count() >= args.devices)
+    backend = backend_for(args.devices, args.device)
+    cards = torch.cuda.device_count() if args.device == "cuda" else 0
+    print(f"[train] {args.devices} ranks over {backend} on "
+          f"{f'{cards} card(s)' if cards else 'the CPU'}", flush=True)
     results = spawn_ranks(_train_rank, args.devices, (args, kind, shape),
-                          backend="nccl" if own_cards else "gloo",
-                          timeout_s=None)
+                          backend=backend, timeout_s=None)
     if args.metrics_json:
         out = results[0]
         out["mesh"] = dict(zip(("data", "model"), shape))
-        out["backend"] = "nccl" if own_cards else "gloo"
+        out["backend"] = backend
         out["ranks"] = [{"rank": r, "device": res["rank_device"],
                          "peak_memory_bytes": res["peak_memory_bytes"],
                          "peak_reserved_bytes": res["peak_reserved_bytes"]}

@@ -45,7 +45,7 @@ def compressed_mean(grads, ef_state, group=None):
         scale = (amax + 1e-12) / 127.0
         q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
         ef_new = g32 - q.float() * scale
-        total = q.to(torch.int32)
+        total = q.to(torch.int32, memory_format=torch.contiguous_format)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
         mean = total.float() * scale / n
         return mean.to(g.dtype), ef_new
