@@ -2,7 +2,10 @@
 ``repro/core/index.py``).
 
 The build stays numpy on the host, bit-identical to the reference, and
-moves the finished arrays to ``device`` at the end.
+moves the finished arrays to ``device`` at the end. Under an open trace
+request (``obs/trace.py``) its stages are spans: ``rebalance``,
+``quantize``, ``pack`` (its args the per-cluster loop's summed host
+seconds), ``tables`` and ``upload``.
 
 ``build_index`` is the host-side (numpy) data-engineering step: it takes a
 sparse corpus + a cluster assignment and emits the padded, quantized
@@ -13,12 +16,19 @@ compaction, as in the reference.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.core import segmentation
 from repro_torch.core.types import INDEX_FIELDS, ClusterIndex, SparseDocs
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import NULL_SPAN, span
+
+
+def _no_clock() -> float:
+    return 0.0
 
 
 def capacity_rebalance(assign: np.ndarray, m: int, d_pad: int,
@@ -174,6 +184,10 @@ def pack_clusters(
     except ``scale``). Used by both the offline build and online
     compaction/re-segmentation, which is what keeps the seg_max invariant
     (exact max over the packed docs' quantized weights) single-sourced.
+
+    Traced, the per-cluster loop is the ``pack`` span, whose args sum its
+    member scans (``scan_s``), row copies (``copy_s``) and segment maxima
+    (``max_at_s``) in host seconds; the tables after it are ``tables``.
     """
     n_docs, t_pad = safe_tids.shape
     V = vocab
@@ -194,57 +208,74 @@ def pack_clusters(
     seg_offsets = np.zeros((m, n_seg + 1), np.int32)
     sorted_upto = np.full((m,), d_pad if sort_segments else 0, np.int32)
 
-    for c in range(m):
-        members = np.nonzero(assign == c)[0]
-        nc = len(members)
-        cluster_ndocs[c] = nc
-        if nc == 0:
-            continue
+    with span("pack") as pack_span:
+        # the loop's parts are timed only when the span records
+        tick = _no_clock if pack_span is NULL_SPAN else time.perf_counter
+        scan_s = copy_s = max_at_s = 0.0
+        for c in range(m):
+            t0 = tick()
+            members = np.nonzero(assign == c)[0]
+            scan_s += tick() - t0
+            nc = len(members)
+            cluster_ndocs[c] = nc
+            if nc == 0:
+                continue
 
-        if seg_method == "random_uniform":
-            seg = segmentation.random_uniform_segments(rng, nc, n_seg)
-        elif seg_method == "kmeans_sub":
-            if dense_rep is None:
-                raise ValueError("kmeans_sub segmentation needs dense_rep")
-            seg = segmentation.kmeans_sub_segments(
-                np.asarray(dense_rep)[members], n_seg, rng=rng)
-        else:
-            raise ValueError(f"unknown seg_method {seg_method!r}")
-        seg = np.asarray(seg, np.int64)
-        if sort_segments:
-            # segment-major slot order: stable, so within a segment the
-            # original member order is preserved (what makes legacy-load
-            # re-sorting in lifecycle/persist.py bit-exact)
-            order = np.argsort(seg, kind="stable")
-            members, seg = members[order], seg[order]
-            seg_offsets[c, 1:] = np.cumsum(
-                np.bincount(seg, minlength=n_seg))
-        doc_tids[c, :nc] = safe_tids[members]
-        doc_tw[c, :nc] = tw_u8[members]
-        doc_mask[c, :nc] = True
-        out_ids[c, :nc] = doc_ids_in[members]
-        doc_seg[c, :nc] = seg
+            if seg_method == "random_uniform":
+                seg = segmentation.random_uniform_segments(rng, nc, n_seg)
+            elif seg_method == "kmeans_sub":
+                if dense_rep is None:
+                    raise ValueError("kmeans_sub segmentation needs "
+                                     "dense_rep")
+                seg = segmentation.kmeans_sub_segments(
+                    np.asarray(dense_rep)[members], n_seg, rng=rng)
+            else:
+                raise ValueError(f"unknown seg_method {seg_method!r}")
+            seg = np.asarray(seg, np.int64)
+            if sort_segments:
+                # segment-major slot order: stable, so within a segment
+                # the original member order is preserved (what makes
+                # legacy-load re-sorting in lifecycle/persist.py
+                # bit-exact)
+                order = np.argsort(seg, kind="stable")
+                members, seg = members[order], seg[order]
+                seg_offsets[c, 1:] = np.cumsum(
+                    np.bincount(seg, minlength=n_seg))
+            t0 = tick()
+            doc_tids[c, :nc] = safe_tids[members]
+            doc_tw[c, :nc] = tw_u8[members]
+            doc_mask[c, :nc] = True
+            out_ids[c, :nc] = doc_ids_in[members]
+            doc_seg[c, :nc] = seg
+            t1 = tick()
 
-        # segmented maxima over quantized weights: one max-fold a cluster
-        # (a max is order-free, so this equals the reference's fold a doc)
-        t = safe_tids[members].astype(np.int64)
-        keep = t < V
-        j = np.broadcast_to(seg[:, None], t.shape)
-        np.maximum.at(seg_max[c], (j[keep], t[keep]), tw_u8[members][keep])
+            # segmented maxima over quantized weights: one max-fold a
+            # cluster (a max is order-free, so this equals the reference's
+            # fold a doc)
+            t = safe_tids[members].astype(np.int64)
+            keep = t < V
+            j = np.broadcast_to(seg[:, None], t.shape)
+            np.maximum.at(seg_max[c], (j[keep], t[keep]),
+                          tw_u8[members][keep])
+            copy_s += t1 - t0
+            max_at_s += tick() - t1
+        pack_span.set_args(clusters=m, scan_s=scan_s, copy_s=copy_s,
+                           max_at_s=max_at_s)
 
-    # stored stacked layout: segment rows + the collapsed BoundSum row,
-    # so the fused bounds GEMM never materializes a per-call copy
-    seg_max_stacked = np.concatenate(
-        [seg_max, seg_max.max(axis=1, keepdims=True)], axis=1)
-    # hoisted modded segment map: planning (doc admission + doc-run
-    # compaction) indexes segment tables with this directly, instead of
-    # re-modding doc_seg once per wave
-    doc_seg_mod = (doc_seg % n_seg).astype(np.int32)
-    # level-0 superblock grouping + coarse bound table (rng-free, so
-    # compaction replay and legacy loads regroup identically)
-    super_of = group_superblocks(seg_max_stacked[:, n_seg])
-    super_members, super_max_stacked = superblock_tables(
-        super_of, seg_max_stacked)
+    with span("tables"):
+        # stored stacked layout: segment rows + the collapsed BoundSum
+        # row, so the fused bounds GEMM never materializes a per-call copy
+        seg_max_stacked = np.concatenate(
+            [seg_max, seg_max.max(axis=1, keepdims=True)], axis=1)
+        # hoisted modded segment map: planning (doc admission + doc-run
+        # compaction) indexes segment tables with this directly, instead
+        # of re-modding doc_seg once per wave
+        doc_seg_mod = (doc_seg % n_seg).astype(np.int32)
+        # level-0 superblock grouping + coarse bound table (rng-free, so
+        # compaction replay and legacy loads regroup identically)
+        super_of = group_superblocks(seg_max_stacked[:, n_seg])
+        super_members, super_max_stacked = superblock_tables(
+            super_of, seg_max_stacked)
     return dict(doc_tids=doc_tids, doc_tw=doc_tw, doc_mask=doc_mask,
                 doc_ids=out_ids, doc_seg=doc_seg, doc_seg_mod=doc_seg_mod,
                 seg_max_stacked=seg_max_stacked, seg_offsets=seg_offsets,
@@ -287,20 +318,22 @@ def build_index(
     assign = np.asarray(assign, np.int64)
     if d_pad is None:
         d_pad = int(max(1, np.bincount(assign, minlength=m).max()))
-    assign = capacity_rebalance(assign, m, d_pad)
+    with span("rebalance"):
+        assign = capacity_rebalance(assign, m, d_pad)
 
     # ---- global uint8 quantization (weights first, maxima after) ----
-    if scale is None:
-        live_max = float((tw * mask).max()) if n_docs else 1.0
-        scale = max(live_max, 1e-6) / 255.0
-    tw_u8 = np.clip(np.round(tw / scale), 0, 255).astype(np.uint8)
-    tw_u8 = np.where(mask, tw_u8, 0).astype(np.uint8)
+    with span("quantize"):
+        if scale is None:
+            live_max = float((tw * mask).max()) if n_docs else 1.0
+            scale = max(live_max, 1e-6) / 255.0
+        tw_u8 = np.clip(np.round(tw / scale), 0, 255).astype(np.uint8)
+        tw_u8 = np.where(mask, tw_u8, 0).astype(np.uint8)
 
-    # term ids are uint16 when the vocab allows (WordPiece's 30522 does):
-    # 3 bytes/posting instead of 5, the stand-in for the paper's
-    # SIMD-BP128 posting compression
-    tid_dtype = np.uint16 if V < 2**16 else np.int32
-    safe_tids = np.where(mask, tids, V).astype(tid_dtype)
+        # term ids are uint16 when the vocab allows (WordPiece's 30522
+        # does): 3 bytes/posting instead of 5, the stand-in for the
+        # paper's SIMD-BP128 posting compression
+        tid_dtype = np.uint16 if V < 2**16 else np.int32
+        safe_tids = np.where(mask, tids, V).astype(tid_dtype)
 
     packed = pack_clusters(safe_tids, tw_u8, assign, m, n_seg, d_pad, V,
                            doc_ids=doc_ids, seg_method=seg_method,
@@ -308,7 +341,8 @@ def build_index(
                            sort_segments=sort_segments)
 
     packed["scale"] = np.float32(scale)
-    return ClusterIndex(
-        **{f: torch.from_numpy(np.asarray(packed[f])).to(dev)
-           for f in INDEX_FIELDS},
-        vocab=V, n_seg=n_seg)
+    with span("upload"):
+        return ClusterIndex(
+            **{f: torch.from_numpy(np.asarray(packed[f])).to(dev)
+               for f in INDEX_FIELDS},
+            vocab=V, n_seg=n_seg)

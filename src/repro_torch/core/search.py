@@ -48,7 +48,17 @@ What changes against the JAX engines, and why:
   * the pipelined engine's executor step runs only the waves it was
     given: the reference pads a step to a static width of 1, 2 or 4
     waves (``_fuse_size``) whose padding waves are gated no-ops, so the
-    port keeps the reference's launch counts and drops the padding.
+    port keeps the reference's launch counts and drops the padding;
+  * the loops are host code, so each part of them is timed as it runs:
+    under an open trace request (``obs/trace.py``) the walk records a
+    ``prologue`` (``query_terms``, ``bounds``, ``walk_order``), one
+    ``wave`` a pass (``plan``, ``execute``, ``merge``, ``sync``; the
+    two-level walk adds ``bounds`` and ``level0``), then the ``drain``,
+    which ends with the serving engine's ``search`` span, after its
+    synchronize. The pipelined
+    engine records ``prologue``, ``plan_launch``, ``exec_step`` and a
+    ``retire`` a host wait; the per-query engine a ``query`` a query.
+    With no request open the spans are inert.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import NEG, SCORE_CHUNK
 from repro_torch.kernels.score_docs.ops import score_clusters
 from repro_torch.kernels.score_docs.ref import score_docs_ref
+from repro_torch.obs.trace import close_span, open_span, span
 
 # `engine="auto"` routes tiny batches to the per-query engine
 AUTO_ENGINE_MIN_BATCH = 4
@@ -514,7 +525,8 @@ def _search_batch(index: ClusterIndex, terms: QueryTerms,
     block_q, block_d, _ = resolve_blocks(index, n_q, cfg)
     n_qb = -(-n_q // block_q)
     exit_div = eta if cfg.method == "asc" else mu
-    rank, shared_p, suffix = _walk_order(order_key, m_padded)
+    with span("walk_order"):
+        rank, shared_p, suffix = _walk_order(order_key, m_padded)
 
     arange_g = torch.arange(G, device=dev)
     zeros_q = torch.zeros((n_q,), dtype=torch.int32, device=dev)
@@ -526,52 +538,65 @@ def _search_batch(index: ClusterIndex, terms: QueryTerms,
     n_tiles_exec = _int32(0, dev)
     n_docs_walk = _int32(0, dev)
     n_tiles_walk = 0                    # host int: a shape count
+    close_span("prologue")
     g = 0
     while g < n_groups:
-        theta = top_scores[:, k - 1]
-        pos = g * G
-        cids = shared_p[pos:pos + G]
-        glive = (arange_g + pos) < m
-        cl = cids.long()
+        with span("wave", "wave", g):
+            theta = top_scores[:, k - 1]
+            pos = g * G
+            cids = shared_p[pos:pos + G]
+            glive = (arange_g + pos) < m
+            cl = cids.long()
 
-        # ---- plan: admission + budget horizon -> compact work queues ----
-        plan, newly_pruned = _plan_admission(
-            cfg, cids=cids.to(torch.int32), glive=glive, done=done,
-            theta=theta, max_s_w=max_s[:, cl], avg_s_w=avg_s[:, cl],
-            key_w=order_key[:, cl], seg_b_w=seg_b[:, cl, :],
-            rank_w=rank[:, cl], n_clusters=n_clusters, n_pruned=n_pruned,
-            budget=budget, dseg_mod_w=index.doc_seg_mod[cl],
-            dmask_w=index.doc_mask[cl], block_q=block_q, block_d=block_d,
-            soff_w=index.seg_offsets[cl], su_w=index.sorted_upto[cl],
-            mu=mu, eta=eta)
-        n_pruned = n_pruned + newly_pruned
-        if record is not None:
-            record.append(plan)
+            # ---- plan: admission + budget horizon -> compact work
+            # queues ----
+            with span("plan"):
+                plan, newly_pruned = _plan_admission(
+                    cfg, cids=cids.to(torch.int32), glive=glive, done=done,
+                    theta=theta, max_s_w=max_s[:, cl], avg_s_w=avg_s[:, cl],
+                    key_w=order_key[:, cl], seg_b_w=seg_b[:, cl, :],
+                    rank_w=rank[:, cl], n_clusters=n_clusters,
+                    n_pruned=n_pruned, budget=budget,
+                    dseg_mod_w=index.doc_seg_mod[cl],
+                    dmask_w=index.doc_mask[cl], block_q=block_q,
+                    block_d=block_d, soff_w=index.seg_offsets[cl],
+                    su_w=index.sorted_upto[cl], mu=mu, eta=eta)
+            n_pruned = n_pruned + newly_pruned
+            if record is not None:
+                record.append(plan)
 
-        # ---- execute: score the compacted queues (non-admitted docs are
-        # exactly NEG), then merge ----
-        scores = _execute_wave(index, plan, terms, cfg)
-        top_scores, top_ids = _merge_wave(top_scores, top_ids, scores, theta,
-                                          index.doc_ids[cl].reshape(-1), k)
+            # ---- execute: score the compacted queues (non-admitted docs
+            # are exactly NEG), then merge ----
+            with span("execute"):
+                scores = _execute_wave(index, plan, terms, cfg)
+            with span("merge"):
+                top_scores, top_ids = _merge_wave(
+                    top_scores, top_ids, scores, theta,
+                    index.doc_ids[cl].reshape(-1), k)
 
-        n_docs = n_docs + (scores > NEG).sum(dim=(1, 2), dtype=torch.int32)
-        n_clusters = n_clusters + plan.admit.sum(dim=1, dtype=torch.int32)
-        n_segments = n_segments + plan.seg_admit.sum(dim=(1, 2),
+            n_docs = n_docs + (scores > NEG).sum(dim=(1, 2),
+                                                 dtype=torch.int32)
+            n_clusters = n_clusters + plan.admit.sum(dim=1,
                                                      dtype=torch.int32)
-        n_tiles_exec = n_tiles_exec + plan.n_blocks
-        n_tiles_walk += G * n_qb
-        n_docs_walk = n_docs_walk + plan.walked_docs()
+            n_segments = n_segments + plan.seg_admit.sum(dim=(1, 2),
+                                                         dtype=torch.int32)
+            n_tiles_exec = n_tiles_exec + plan.n_blocks
+            n_tiles_walk += G * n_qb
+            n_docs_walk = n_docs_walk + plan.walked_docs()
 
-        theta_new = top_scores[:, k - 1]
-        nxt = min((g + 1) * G, m_padded - 1)
-        done = (done | (suffix[:, nxt] <= theta_new / exit_div)
-                | (n_clusters >= budget))
-        g += 1
-        stats["waves"] += 1
-        if g < n_groups:
-            stats["host_syncs"] += 1          # the loop condition's read
-            if bool(done.all()):
-                break
+            theta_new = top_scores[:, k - 1]
+            nxt = min((g + 1) * G, m_padded - 1)
+            done = (done | (suffix[:, nxt] <= theta_new / exit_div)
+                    | (n_clusters >= budget))
+            g += 1
+            stats["waves"] += 1
+            if g < n_groups:
+                stats["host_syncs"] += 1      # the loop condition's read
+                with span("sync"):
+                    stop = bool(done.all())
+                if stop:
+                    break
+    open_span("drain")
     top_ids = torch.where(top_scores > NEG, top_ids, -1)
     # batch-level tile/doc counters, replicated per query (TopK docstring)
     return (top_ids, top_scores, n_docs, n_clusters, n_segments,
@@ -619,9 +644,11 @@ def _search_batch_super(index: ClusterIndex, terms: QueryTerms,
     exit_div = eta if asc else mu
 
     # ---- level 0: coarse bounds, the shared superblock order ----
-    _, sup_max, sup_avg, sup_key = _method_stats(
-        superblock_bounds(index, terms), cfg)              # (n_q, S)
-    _, shared_s, suffix = _walk_order(sup_key, S)
+    with span("bounds"):
+        _, sup_max, sup_avg, sup_key = _method_stats(
+            superblock_bounds(index, terms), cfg)          # (n_q, S)
+    with span("walk_order"):
+        _, shared_s, suffix = _walk_order(sup_key, S)
     members_ord = index.super_members[shared_s]              # (S, cap)
     mem_live = members_ord >= 0
     live_rank = (torch.cumsum(mem_live.reshape(-1).to(torch.int32), 0,
@@ -652,77 +679,89 @@ def _search_batch_super(index: ClusterIndex, terms: QueryTerms,
     n_bounded = _int32(0, dev)
     n_tiles_walk = n_sup_walked = 0     # host ints
     theta = top_scores[:, k - 1]
-    s_admit = level0(0, theta, done)
-    walked = bool(s_admit.any())
+    with span("level0"):
+        s_admit = level0(0, theta, done)
+    with span("sync"):
+        walked = bool(s_admit.any())
     stats["host_syncs"] += 1
+    close_span("prologue")
     w = 0
     while w < S:
-        members = members_ord[w]
-        glive = members >= 0
-        cids = torch.where(glive, members, 0).to(torch.int32)
-        cl = cids.long()
-        rank_w = live_rank[w].expand(n_q, cap)
-        if walked:
-            # the survivors' share of the fine bound pass: K1 over this
-            # superblock's member rows (a fresh, aligned gather)
-            seg_b_w, max_s_w, avg_s_w, key_w = _method_stats(
-                stacked_bounds(index.seg_max_stacked[cl], terms,
-                               index.scale), cfg)
-            # queries level 0 pruned see NEG member bounds, so _admission
-            # counts every member pruned for them and the budget horizon
-            # moves exactly as if it had priced them
-            mq = s_admit[:, None]
-            max_s_w = torch.where(mq, max_s_w, NEG)
-            avg_s_w = torch.where(mq, avg_s_w, NEG)
-            key_w = torch.where(mq, key_w, NEG)
-            seg_b_w = torch.where(mq[:, :, None], seg_b_w, NEG)
-            plan, newly_pruned = _plan_admission(
-                cfg, cids=cids, glive=glive, done=done, theta=theta,
-                max_s_w=max_s_w, avg_s_w=avg_s_w, key_w=key_w,
-                seg_b_w=seg_b_w, rank_w=rank_w, n_clusters=n_clusters,
-                n_pruned=n_pruned, budget=budget,
-                dseg_mod_w=index.doc_seg_mod[cl],
-                dmask_w=index.doc_mask[cl], block_q=block_q,
-                block_d=block_d, soff_w=index.seg_offsets[cl],
-                su_w=index.sorted_upto[cl], mu=mu, eta=eta)
-            n_pruned = n_pruned + newly_pruned
-            scores = _execute_wave(index, plan, terms, cfg)
-            top_scores, top_ids = _merge_wave(
-                top_scores, top_ids, scores, theta,
-                index.doc_ids[cl].reshape(-1), k)
-            n_docs = n_docs + (scores > NEG).sum(dim=(1, 2),
-                                                 dtype=torch.int32)
-            n_clusters = n_clusters + plan.admit.sum(dim=1,
+        with span("wave", "wave", w):
+            members = members_ord[w]
+            glive = members >= 0
+            cids = torch.where(glive, members, 0).to(torch.int32)
+            cl = cids.long()
+            rank_w = live_rank[w].expand(n_q, cap)
+            if walked:
+                # the survivors' share of the fine bound pass: K1 over
+                # this superblock's member rows (a fresh, aligned gather)
+                with span("bounds"):
+                    seg_b_w, max_s_w, avg_s_w, key_w = _method_stats(
+                        stacked_bounds(index.seg_max_stacked[cl], terms,
+                                       index.scale), cfg)
+                with span("plan"):
+                    # queries level 0 pruned see NEG member bounds, so
+                    # _admission counts every member pruned for them and
+                    # the budget horizon moves exactly as if it had priced
+                    # them
+                    mq = s_admit[:, None]
+                    max_s_w = torch.where(mq, max_s_w, NEG)
+                    avg_s_w = torch.where(mq, avg_s_w, NEG)
+                    key_w = torch.where(mq, key_w, NEG)
+                    seg_b_w = torch.where(mq[:, :, None], seg_b_w, NEG)
+                    plan, newly_pruned = _plan_admission(
+                        cfg, cids=cids, glive=glive, done=done, theta=theta,
+                        max_s_w=max_s_w, avg_s_w=avg_s_w, key_w=key_w,
+                        seg_b_w=seg_b_w, rank_w=rank_w,
+                        n_clusters=n_clusters, n_pruned=n_pruned,
+                        budget=budget, dseg_mod_w=index.doc_seg_mod[cl],
+                        dmask_w=index.doc_mask[cl], block_q=block_q,
+                        block_d=block_d, soff_w=index.seg_offsets[cl],
+                        su_w=index.sorted_upto[cl], mu=mu, eta=eta)
+                n_pruned = n_pruned + newly_pruned
+                with span("execute"):
+                    scores = _execute_wave(index, plan, terms, cfg)
+                with span("merge"):
+                    top_scores, top_ids = _merge_wave(
+                        top_scores, top_ids, scores, theta,
+                        index.doc_ids[cl].reshape(-1), k)
+                n_docs = n_docs + (scores > NEG).sum(dim=(1, 2),
                                                      dtype=torch.int32)
-            n_segments = n_segments + plan.seg_admit.sum(dim=(1, 2),
-                                                         dtype=torch.int32)
-            n_tiles_exec = n_tiles_exec + plan.n_blocks
-            n_docs_walk = n_docs_walk + plan.walked_docs()
-            n_bounded = n_bounded + n_live[w]
-            n_tiles_walk += cap * n_qb
-            n_sup_walked += 1
-        else:
-            # every live member is pruned for every query not done
-            # (dominance); pruned clusters inside the budget horizon stay
-            # budget-free, as _admission would count them
-            live_q = glive[None, :] & ~done[:, None]
-            gate = rank_w < (budget + n_pruned)[:, None]
-            n_pruned = n_pruned + (live_q & gate).sum(dim=1,
-                                                      dtype=torch.int32)
+                n_clusters = n_clusters + plan.admit.sum(
+                    dim=1, dtype=torch.int32)
+                n_segments = n_segments + plan.seg_admit.sum(
+                    dim=(1, 2), dtype=torch.int32)
+                n_tiles_exec = n_tiles_exec + plan.n_blocks
+                n_docs_walk = n_docs_walk + plan.walked_docs()
+                n_bounded = n_bounded + n_live[w]
+                n_tiles_walk += cap * n_qb
+                n_sup_walked += 1
+            else:
+                # every live member is pruned for every query not done
+                # (dominance); pruned clusters inside the budget horizon
+                # stay budget-free, as _admission would count them
+                live_q = glive[None, :] & ~done[:, None]
+                gate = rank_w < (budget + n_pruned)[:, None]
+                n_pruned = n_pruned + (live_q & gate).sum(
+                    dim=1, dtype=torch.int32)
 
-        theta = top_scores[:, k - 1]
-        nxt = min(w + 1, S - 1)
-        done = (done | (suffix[:, nxt] <= theta / exit_div)
-                | (n_clusters >= budget))
-        w += 1
-        stats["waves"] += 1
-        if w < S:
-            s_admit = level0(w, theta, done)
-            all_done, walked = torch.stack([done.all(),
-                                            s_admit.any()]).tolist()
-            stats["host_syncs"] += 1
-            if all_done:
-                break
+            theta = top_scores[:, k - 1]
+            nxt = min(w + 1, S - 1)
+            done = (done | (suffix[:, nxt] <= theta / exit_div)
+                    | (n_clusters >= budget))
+            w += 1
+            stats["waves"] += 1
+            if w < S:
+                with span("level0"):
+                    s_admit = level0(w, theta, done)
+                with span("sync"):
+                    all_done, walked = torch.stack(
+                        [done.all(), s_admit.any()]).tolist()
+                stats["host_syncs"] += 1
+                if all_done:
+                    break
+    open_span("drain")
     top_ids = torch.where(top_scores > NEG, top_ids, -1)
     full = lambda v: (v.expand(n_q).clone() if isinstance(v, torch.Tensor)
                       else torch.full((n_q,), v, dtype=torch.int32,
@@ -769,8 +808,11 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                          "members inside a branch")
     if record_plans and engine != "batched":
         raise ValueError("plan recording requires engine='batched'")
-    terms = query_terms(queries, resolve_blocks(index, nq, cfg)[0]
-                        if engine == "batched" else None)
+    # closed by the walk where its loop starts
+    open_span("prologue")
+    with span("query_terms"):
+        terms = query_terms(queries, resolve_blocks(index, nq, cfg)[0]
+                            if engine == "batched" else None)
     budget = _resolve_budget(cfg, index.m, budget, dev)
     mu, eta = _resolve_mu_eta(cfg, nq, mu_eta, dev)
     if two_level:
@@ -778,8 +820,9 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
         # front, members when their superblock is walked
         return _search_batch_super(index, terms, cfg, budget, mu, eta,
                                    stats)
-    bstats = cluster_bounds(index, queries, impl=cfg.bounds_impl,
-                            terms=terms)
+    with span("bounds"):
+        bstats = cluster_bounds(index, queries, impl=cfg.bounds_impl,
+                                terms=terms)
     seg_b, max_s, avg_s, order_key = _method_stats(bstats, cfg)
     # single-level engines report the degenerate level-0 funnel: every
     # cluster bounded, every superblock walked, none pruned
@@ -788,10 +831,14 @@ def _retrieve_arrays(index: ClusterIndex, queries: QueryBatch,
                              device=dev),
                   torch.zeros((nq,), dtype=torch.int32, device=dev))
     if engine == "per_query":
-        rows = [_search_one_query(index, terms, i, seg_b[i], max_s[i],
-                                  avg_s[i], order_key[i], cfg, budget,
-                                  mu[i], eta[i], stats)
-                for i in range(nq)]
+        close_span("prologue")
+        rows = []
+        for i in range(nq):
+            with span("query", "query", i):
+                rows.append(_search_one_query(
+                    index, terms, i, seg_b[i], max_s[i], avg_s[i],
+                    order_key[i], cfg, budget, mu[i], eta[i], stats))
+        open_span("drain")
         out = tuple(torch.stack([r[j] for r in rows]).to(
             torch.float32 if j == 1 else torch.int32) for j in range(8))
         return out + degenerate
@@ -887,11 +934,14 @@ def _pipeline_prologue(index: ClusterIndex, queries: QueryBatch,
     shared walk and its suffix maxima."""
     m, G = index.m, cfg.group_size
     n_q = queries.n_queries
-    terms = query_terms(queries, resolve_blocks(index, n_q, cfg)[0])
-    seg_b, max_s, avg_s, order_key = _method_stats(
-        cluster_bounds(index, queries, impl=cfg.bounds_impl, terms=terms),
-        cfg)
-    rank, shared_p, suffix = _walk_order(order_key, -(-m // G) * G)
+    with span("query_terms"):
+        terms = query_terms(queries, resolve_blocks(index, n_q, cfg)[0])
+    with span("bounds"):
+        seg_b, max_s, avg_s, order_key = _method_stats(
+            cluster_bounds(index, queries, impl=cfg.bounds_impl,
+                           terms=terms), cfg)
+    with span("walk_order"):
+        rank, shared_p, suffix = _walk_order(order_key, -(-m // G) * G)
     mu, eta = _resolve_mu_eta(cfg, n_q, None, index.device)
     return _Prologue(terms, seg_b, max_s, avg_s, order_key, rank, shared_p,
                      suffix, _resolve_budget(cfg, m, budget, index.device),
@@ -1167,8 +1217,10 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
     lanes = _Lanes(dev)
 
     t0 = time.perf_counter()
-    pro = _pipeline_prologue(index, queries, cfg, budget=budget)
-    lanes.read(lanes.fetch(pro.shared_p[:1], "origin"))
+    with span("prologue"):
+        pro = _pipeline_prologue(index, queries, cfg, budget=budget)
+        with span("retire", "of", "prologue"):
+            lanes.read(lanes.fetch(pro.shared_p[:1], "origin"))
     stats["host_syncs"] += 1
     plan_ms = (time.perf_counter() - t0) * 1e3
     exec_ms = 0.0
@@ -1190,7 +1242,8 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
             return
         carry, fetched, wave_ids = inflight
         t0 = time.perf_counter()
-        vals = lanes.read(fetched)
+        with span("retire", "of", "exec_step"):
+            vals = lanes.read(fetched)
         exec_ms += (time.perf_counter() - t0) * 1e3
         stats["host_syncs"] += 1
         stop = bool(vals[0])
@@ -1219,10 +1272,11 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
         # retire the previous step after taking its carry: the exact chain
         # stays on the device, the host only waits for its stats
         retire()
-        with lanes.on("exec"):
-            carry, st = _exec_fused(index, pro.terms, plans, nxt, carry_in,
-                                    pro, cfg)
-        inflight = (carry, lanes.fetch(st, "exec"), wave_ids)
+        with span("exec_step", "waves", len(plans)):
+            with lanes.on("exec"):
+                carry, st = _exec_fused(index, pro.terms, plans, nxt,
+                                        carry_in, pro, cfg)
+            inflight = (carry, lanes.fetch(st, "exec"), wave_ids)
         exec_launches += 1
         if len(plans) > 1:
             fused_waves += len(plans)
@@ -1235,10 +1289,12 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
         lag_waves = ((len(inflight[2]) if inflight is not None else 0)
                      + len(pending))
         t0 = time.perf_counter()
-        with lanes.on("plan"):
-            plans, nb_dev = _plan_launch(index, g * G, pro, stale, lag_waves,
-                                         cfg, block_q, block_d, P)
-        nb = lanes.fetch(nb_dev, "plan")
+        with span("plan_launch", "pos", g * G):
+            with lanes.on("plan"):
+                plans, nb_dev = _plan_launch(index, g * G, pro, stale,
+                                             lag_waves, cfg, block_q,
+                                             block_d, P)
+            nb = lanes.fetch(nb_dev, "plan")
         plan_ms += (time.perf_counter() - t0) * 1e3
         plan_launches += 1
         # retire the in-flight executor step before waiting on the plan's
@@ -1247,7 +1303,8 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
         if stop:
             break
         t0 = time.perf_counter()
-        nbs = lanes.read(nb)            # the dispatch-boundary stall
+        with span("retire", "of", "plan_launch"):
+            nbs = lanes.read(nb)        # the dispatch-boundary stall
         plan_ms += (time.perf_counter() - t0) * 1e3
         stats["host_syncs"] += 1
         for i in range(P):
@@ -1257,6 +1314,7 @@ def retrieve_pipelined(index: ClusterIndex, queries: QueryBatch,
                     or g + i + 1 >= n_groups):
                 dispatch()
         g += P
+    open_span("drain")
     if not stop:
         dispatch()   # waves planned after the last flush (an early exit
                      # leaves pending plans undispatched: they would only

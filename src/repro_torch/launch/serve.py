@@ -55,11 +55,13 @@ Observability options (docs/observability.md):
                      and the Prometheus exposition next to it (.prom).
   --trace-dir D      write per-request Chrome-trace JSON (Perfetto-
                      loadable) under D; --trace-every N samples every
-                     Nth request.
+                     Nth request. A built index's stages go to
+                     D/build/trace_000000.json.
   --profile-first-n N  additionally wrap the first N requests in a
                      torch.profiler capture under D/torch_profile.
   --split-every N    every Nth request, split planner vs executor wall
-                     time into the registry (0 = only traced requests).
+                     time into the registry (0 = never; a traced request
+                     is timed as it runs and replays nothing).
 
 Sharded serving:
   --devices N     N >= 4: serve over N ranks on a (N // 2, 2) ("data",
@@ -131,7 +133,7 @@ def _parse(argv=None):
                     help="torch.profiler capture for the first N requests")
     ap.add_argument("--split-every", type=int, default=0,
                     help="planner/executor split every Nth request "
-                         "(0 = only on traced requests)")
+                         "(0 = never)")
     ap.add_argument("--frontend", type=str, default="off",
                     choices=("off", "closed", "open"),
                     help="streaming front-end mode: off = offline "
@@ -422,6 +424,7 @@ def main(argv=None) -> None:
     from repro_torch.data.synthetic import (CorpusSpec, make_corpus,
                                             make_queries)
     from repro_torch.lifecycle import IndexWriter, load_index, save_index
+    from repro_torch.obs.trace import NULL_REQUEST, TraceRecorder
     from repro_torch.serving.engine import (AdaptiveBudget, RetrievalEngine,
                                             ServeStats)
 
@@ -455,8 +458,13 @@ def main(argv=None) -> None:
                                   k=args.clusters, iters=8)
         d_pad = int(2.0 * args.n_docs / args.clusters)
         assign = balanced_assign(rep, centers, capacity=d_pad)
-        index = build_index(docs, assign.cpu().numpy(), m=args.clusters,
-                            n_seg=args.segments, d_pad=d_pad, device=home)
+        # traced, the build's stages are D/build/trace_000000.json
+        build = (TraceRecorder(os.path.join(args.trace_dir, "build"))
+                 .request() if args.trace_dir else NULL_REQUEST)
+        with build:
+            index = build_index(docs, assign.cpu().numpy(), m=args.clusters,
+                                n_seg=args.segments, d_pad=d_pad,
+                                device=home)
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     print(f"[serve] index: {index.m}x{index.n_seg}, "
           f"{index.nbytes() / 2**20:.1f} MiB, "

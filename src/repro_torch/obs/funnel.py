@@ -141,9 +141,8 @@ class Observability:
     the plan-recording retrieval path and replays the executor to split
     planner vs executor wall time into the registry (0 disables; the
     sampled request pays the replay, unsampled requests pay nothing;
-    see docs/observability.md §planner-share). A request that is traced
-    (``trace_dir`` set and sampled) always records the split — the
-    per-wave child spans come from the same recorded plans.
+    see docs/observability.md §planner-share). Tracing never asks for
+    the split: a traced request's spans are timed as its waves run.
     """
 
     def __init__(self, registry: MetricsRegistry | None = None,
@@ -174,4 +173,4 @@ class Observability:
             trace = self.tracer.request()
             want_split = bool(self.split_every
                               and rid % self.split_every == 0)
-        return rid, trace, want_split or trace.enabled
+        return rid, trace, want_split

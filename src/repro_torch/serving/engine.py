@@ -17,11 +17,14 @@ plane's health as the read path sees it.
 Observability (``repro_torch.obs``): pass an :class:`Observability` and
 every search records the pruning funnel (clusters budgeted -> tiles
 walked -> tiles scored -> doc slots walked -> docs scored) and the
-latency histograms into its metrics registry; sampled requests also
-split planner from executor time through :func:`planner_executor_split`
-(out of band: the latency histograms and the adaptive budget only ever
-see the production call) and emit per-request trace spans. With
-``obs=None`` a search is the plain call.
+latency histograms into its metrics registry; every ``split_every``-th
+request also splits planner from executor time through
+:func:`planner_executor_split` (out of band: the latency histograms and
+the adaptive budget only ever see the production call), and sampled
+requests record their trace spans (``obs/trace.py``) as they run: the
+search, its prologue, each wave of the loop and the drain. With
+``obs=None`` a search is the plain call, and its spans land in whatever
+request the caller has open (none: they are inert).
 
 The distributed path (``distributed_retrieve``) runs one process a rank:
 each rank holds one block of clusters (``shard_index``), searches its
@@ -51,7 +54,7 @@ from repro_torch.lifecycle.snapshot import IndexSnapshot, SnapshotPublisher
 from repro_torch.obs.funnel import (Observability, funnel_from_topk,
                                     record_funnel)
 from repro_torch.obs.metrics import LATENCY_BUCKETS_MS, MetricsRegistry
-from repro_torch.obs.trace import NULL_REQUEST
+from repro_torch.obs.trace import current_request, detached, span
 
 
 class ServeStats:
@@ -333,23 +336,24 @@ class RetrievalEngine:
 
     def _run(self, index: ClusterIndex, queries: QueryBatch, budget: int,
              mu_eta) -> TopK:
-        if self.cfg.engine == "pipelined":
-            # the plan launches read cfg's (mu, eta): per-request
-            # fidelity is not plumbed through them
-            if mu_eta is not None:
-                raise ValueError("per-request mu_eta is not supported on "
-                                 "engine='pipelined'")
-            out, info = retrieve_pipelined(
-                index, queries, self.cfg, budget, device=self.device,
-                with_info=True, stats=self.last_run)
-            self.last_run.update({key: info[key] for key in (
-                "plan_launches", "exec_launches", "fused_waves", "plan_ms",
-                "exec_ms")})
-        else:
-            out = retrieve(index, queries, self.cfg, budget=budget,
-                           mu_eta=mu_eta, device=self.device,
-                           stats=self.last_run)
-        self._sync()
+        with span("search", "n_q", queries.n_queries):
+            if self.cfg.engine == "pipelined":
+                # the plan launches read cfg's (mu, eta): per-request
+                # fidelity is not plumbed through them
+                if mu_eta is not None:
+                    raise ValueError("per-request mu_eta is not supported "
+                                     "on engine='pipelined'")
+                out, info = retrieve_pipelined(
+                    index, queries, self.cfg, budget, device=self.device,
+                    with_info=True, stats=self.last_run)
+                self.last_run.update({key: info[key] for key in (
+                    "plan_launches", "exec_launches", "fused_waves",
+                    "plan_ms", "exec_ms")})
+            else:
+                out = retrieve(index, queries, self.cfg, budget=budget,
+                               mu_eta=mu_eta, device=self.device,
+                               stats=self.last_run)
+            self._sync()    # the walk's drain ends with `search`, after it
         return out
 
     def warmup(self, queries: QueryBatch, mu_eta=None) -> None:
@@ -384,7 +388,7 @@ class RetrievalEngine:
                      want_split: bool, mu_eta=None,
                      budget_frac: float | None = None) -> TopK:
         if trace is None:
-            trace = NULL_REQUEST
+            trace = current_request()
         live = isinstance(self._source, SnapshotPublisher)
         # pin one epoch for this request (counted as a live reader when
         # serving a publisher, so GC metrics see in-flight queries)
@@ -402,51 +406,53 @@ class RetrievalEngine:
             # the two-level walk records no plans: sampled superblock
             # requests skip the split
             if want_split and not self.cfg.superblocks:
-                self._search_split(snap, queries, budget, obs, trace)
+                # one span for the replay; its own walk is not the
+                # request's, so its spans stay out
+                with trace.span("split"), detached():
+                    self._search_split(snap, queries, budget, obs)
         finally:
             if live:
                 # no stream may still read the epoch once it is unpinned
                 self._sync()
                 self._source.unpin(snap)
-        with trace.span("topk_merge"):
+        with trace.span("account"):
             per_query_ms = self.stats.record(queries.n_queries, dt)
             self.last_epoch = snap.epoch
             if obs is not None:
                 self._record_request(obs, trace, snap, queries, out,
                                      budget, dt)
-        if live:
-            gc = self._source.gc_stats()
-            self.stats.epoch_reader_counts = gc["live_readers"]
-            self.stats.max_epoch_lifetime_s = gc["max_epoch_lifetime_s"]
-            self.stats.collected_epochs = gc["collected_epochs"]
-            if obs is not None:
-                self._mirror_lifecycle(obs.registry, gc)
-        if self.adaptive is not None:
-            self.adaptive.observe(
-                float(out.n_scored_clusters.float().mean()), per_query_ms)
-            if obs is not None:
-                reg = obs.registry
-                reg.gauge("adaptive_cost_ms",
-                          "EMA per-cluster cost estimate").set(
-                    self.adaptive.cost_ms)
-                reg.gauge("adaptive_budget_clusters",
-                          "cluster budget the controller will grant "
-                          "next batch").set(self.adaptive.budget())
+            if live:
+                gc = self._source.gc_stats()
+                self.stats.epoch_reader_counts = gc["live_readers"]
+                self.stats.max_epoch_lifetime_s = gc["max_epoch_lifetime_s"]
+                self.stats.collected_epochs = gc["collected_epochs"]
+                if obs is not None:
+                    self._mirror_lifecycle(obs.registry, gc)
+            if self.adaptive is not None:
+                self.adaptive.observe(
+                    float(out.n_scored_clusters.float().mean()),
+                    per_query_ms)
+                if obs is not None:
+                    reg = obs.registry
+                    reg.gauge("adaptive_cost_ms",
+                              "EMA per-cluster cost estimate").set(
+                        self.adaptive.cost_ms)
+                    reg.gauge("adaptive_budget_clusters",
+                              "cluster budget the controller will grant "
+                              "next batch").set(self.adaptive.budget())
         return out
 
-    def _search_split(self, snap, queries, budget, obs, trace) -> None:
+    def _search_split(self, snap, queries, budget, obs) -> None:
         """Sampled request, run *after* (and outside the timing of) the
         production search: replay the batch through the planner/executor
-        seam, emit plan/execute spans (per-wave children apportioned by
-        each wave's walked doc slots) and record the split histograms.
-        Its wall time never reaches ``stats.record`` or the adaptive
-        budget."""
+        seam and record the split histograms. Its wall time never
+        reaches ``stats.record`` or the adaptive budget."""
         if not self._split_warm:
             planner_executor_split(snap.index, queries, self.cfg,
                                    budget=budget, reps=1,
                                    device=self.device)
             self._split_warm = True
-        _, waves, split = planner_executor_split(
+        _, _, split = planner_executor_split(
             snap.index, queries, self.cfg, budget=budget, reps=1,
             device=self.device)
         reg = obs.registry
@@ -473,27 +479,6 @@ class RetrievalEngine:
                       "waves that shared a fused executor launch in "
                       "the last sampled pipelined request").set(
                 split["fused_waves"])
-        if trace.enabled:
-            now_us = trace._now_us()
-            plan_us = int(split["planner_ms"] * 1e3)
-            exec_us = int(split["executor_ms"] * 1e3)
-            plan_args = {"planner_share": split["planner_share"]}
-            if "plan_launches" in split:
-                plan_args.update(
-                    plan_launches=split["plan_launches"],
-                    exec_launches=split["exec_launches"],
-                    fused_waves=split["fused_waves"])
-            trace.synthetic_span("plan", now_us - plan_us - exec_us,
-                                 plan_us, **plan_args)
-            total_slots = sum(w["walked_doc_slots"] for w in waves) or 1
-            trace.synthetic_span("execute", now_us - exec_us, exec_us,
-                                 n_waves=len(waves))
-            t = now_us - exec_us
-            for w in waves:
-                w_us = int(exec_us * w["walked_doc_slots"] / total_slots)
-                trace.synthetic_span(f"wave_{w['wave']:03d}", t, w_us,
-                                     **w)
-                t += w_us
 
     def _record_request(self, obs, trace, snap, queries, out, budget,
                         dt) -> None:

@@ -13,8 +13,8 @@
     reach ``ServeStats``, degraded requests are counted, and the registry
     of a churning, serving writer equals the reference's;
   * the trace recorder writes loadable Chrome traces (the engine's span
-    hierarchy, and the torch.profiler capture), and the exposition
-    endpoint serves both views.
+    tree as the walk ran, and the torch.profiler capture), and the
+    exposition endpoint serves both views.
 """
 
 from __future__ import annotations
@@ -382,17 +382,24 @@ def test_engine_writes_loadable_chrome_traces(tmp_path, engine):
         doc = validate_chrome_trace(p)
         assert j_validate_trace(p) == doc
         names = [e["name"] for e in doc["traceEvents"]]
-        for required in ("request", "epoch_pin", "plan", "execute",
-                         "topk_merge"):
+        loop = (("plan_launch", "exec_step", "retire")
+                if engine == "pipelined"
+                else ("wave", "plan", "execute", "merge", "sync"))
+        for required in ("request", "epoch_pin", "search", "prologue",
+                         "query_terms", "bounds", "walk_order", "drain",
+                         "account") + loop:
             assert required in names, (p, names)
-        waves = [e for e in doc["traceEvents"]
-                 if e["name"].startswith("wave_")]
-        ex = next(e for e in doc["traceEvents"] if e["name"] == "execute")
-        assert waves and ex["args"]["n_waves"] == len(waves)
+        # the same batch each search, so every request walks last_run's
+        if engine == "pipelined":
+            steps = [e for e in doc["traceEvents"]
+                     if e["name"] == "exec_step"]
+            assert len(steps) == eng.last_run["exec_launches"]
+            assert sum(e["args"]["waves"] for e in steps) \
+                >= eng.last_run["waves"]
+        else:
+            assert names.count("wave") == eng.last_run["waves"] >= 1
         req = next(e for e in doc["traceEvents"] if e["name"] == "request")
         assert req["args"]["epoch"] == 0 and req["args"]["batch"] == 6
-    if engine == "pipelined":
-        assert obs.registry.get("pipeline_plan_launches").value >= 1
 
 
 def test_torch_profiler_capture_is_written(tmp_path):

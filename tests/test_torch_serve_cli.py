@@ -33,6 +33,7 @@ import torch
 from repro_torch.launch import serve as t_serve
 from repro_torch.lifecycle import load_index, read_manifest
 from repro_torch.lifecycle.wal import SNAPSHOT_SUBDIR
+from repro_torch.obs.trace import validate_chrome_trace
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--n-docs", "600", "--vocab", "256", "--clusters", "8",
@@ -67,6 +68,23 @@ def test_default_build_and_offline_batches(tmp_path, capsys):
     assert sorted(ids.tolist()) == list(range(600))
     assert index.d_pad == 150
     assert int(index.cluster_ndocs.max()) <= 150
+
+
+def test_trace_dir_holds_the_build_and_the_requests(tmp_path):
+    traces = tmp_path / "traces"
+    t_serve.main(["--device", "cpu", *SMALL, "--batches", "2",
+                  "--trace-dir", str(traces)])
+    build = validate_chrome_trace(str(traces / "build" /
+                                      "trace_000000.json"))
+    assert [e["name"] for e in build["traceEvents"]] == [
+        "rebalance", "quantize", "pack", "tables", "upload", "request"]
+    assert set(build["traceEvents"][2]["args"]) == {
+        "clusters", "scan_s", "copy_s", "max_at_s"}
+    served = sorted(p.name for p in traces.glob("trace_*.json"))
+    assert served == ["trace_000000.json", "trace_000001.json"]
+    names = {e["name"] for e in validate_chrome_trace(
+        str(traces / served[0]))["traceEvents"]}
+    assert {"request", "search", "prologue", "wave", "drain"} <= names
 
 
 def test_refuses_a_missing_card():
