@@ -4,11 +4,12 @@
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases nccl       # build, world, nccl: 4 cards
     python3 chip_smoke.py --phases nccl_full  # the launcher at m = 4,096
+    python3 chip_smoke.py --phases merge      # build, the merge's row: 1 card
 
 Phases, each printing one JSON line (all must pass, or the script exits
 nonzero and prints no result):
 
-  1. build   — compile the five CUDA sources of ``kernels/csrc`` and
+  1. build   — compile the six CUDA sources of ``kernels/csrc`` and
                print the build seconds and the card's name and power limit;
   2. golden  — rebuild the golden world of tests/test_golden_regression.py
                with the port's own numpy builders and run its seven
@@ -81,13 +82,20 @@ nonzero and prints no result):
                the plain planner), with ``compact_front`` still checked on
                its own; K4 by cluster id against its plain version and
                timed against the gather + flat ``score_docs`` + mask
-               sequence it replaced. K1 is also checked and timed at the
-               level-0 shape (207 rows), K2 and the planner at the
-               superblock wave (G = 23; every superblock wave of a batch
-               for the planner). It runs after the dist phase and before
-               the encoder, before any model phase (its profiler pass is
-               the first since the retrieval phases; the moe phase
-               profiles decode steps), and its line is printed at the end.
+               sequence it replaced; the wave's merge bit for bit on
+               ``tools/merge_cases.py`` and at k = 1,000 and 20,000, and
+               timed at the benchmark's wave (256 queries x 32 x 2,560,
+               k = 10 and 1,000) and at the serve phase's first 64-query
+               wave, beside its plain sort path and ``torch.topk``
+               (``--phases merge``: this row alone, its 64-query wave a
+               synthetic first wave). K1 is also checked
+               and timed at the level-0 shape (207 rows), K2 and the
+               planner at the superblock wave (G = 23; every superblock
+               wave of a batch for the planner). It runs after the dist
+               phase and before the encoder, before any model phase (its
+               profiler pass is the first since the retrieval phases; the
+               moe phase profiles decode steps), and its line is printed
+               at the end.
 
   8. frontend — the streaming front-end (``serving/frontend.py``) over
                the serve phase's engine, closed loop, max_batch 64, every
@@ -610,6 +618,15 @@ def check_identical(a, b, what: str) -> None:
     for f in TOPK_FIELDS:
         if not torch.equal(getattr(a, f), getattr(b, f)):
             raise AssertionError(f"{what}: {f} differs")
+
+
+def check_merge(got, want, what: str) -> None:
+    """The merge's (scores, ids) bit for bit, +0.0 against -0.0 too."""
+    import torch
+    (gs, gi), (ws, wi) = got, want
+    if not (torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+            and torch.equal(gi, wi)):
+        raise AssertionError(f"{what}: differs from the sort path")
 
 
 # the counters each query of a batched walk counts for itself; the others
@@ -1334,6 +1351,9 @@ def hold_kernels(run, torch, calls: list | None = None) -> dict:
             if bad:
                 raise AssertionError(f"planner kernel differs from its "
                                      f"plain version: {bad}")
+            continue
+        if name == "merge_topk":
+            check_merge(got, want, "merge kernel")
             continue
         neg = want == NEG
         if not torch.equal(got == NEG, neg):
@@ -3006,6 +3026,9 @@ def catalog_kernel_times(calls: list, torch) -> dict:
             row["shape"] = dict(n_q=a[2].shape[0], G=a[0].shape[0],
                                 n_seg=a[3].shape[-1], block_q=a[4],
                                 block_d=a[7])
+        elif name == "merge_topk":
+            row["shape"] = dict(n_q=a[2].shape[0], wave=a[2][0].numel(),
+                                k=a[5])
         else:
             row["shape"] = dict(G=a[4].shape[0], d_pad=a[0].shape[1],
                                 t_pad=a[0].shape[2],
@@ -6362,7 +6385,91 @@ def phase_kernels(index, queries, captured, launches, sb, pl, lc, fe, dist,
                                                    scale4)),
             plain_ms=time_ms(lambda: score_docs_ref(tiles, wts, qmap1,
                                                     scale4)))))
+
+    # ---- the wave's merge ------------------------------------------------
+    rows.append(dict(**merge_row(torch, captured["merge_topk"][0]),
+                     launches=launches["merge_topk"],
+                     path_launches=path_launches("merge_topk"),
+                     catalog=catalog("merge_topk")))
     return rows
+
+
+def merge_row(torch, wave64: tuple | None = None) -> dict:
+    """The wave's merge against its plain sort path, bit for bit, on every
+    case of ``tools/merge_cases.py``, at k = 1,000 and 20,000 (a workspace
+    in global memory) and at the benchmark's wave (256 x 32 x 2,560, k =
+    10); kernel, device, plain and ``torch.topk`` times there (a later
+    wave, few scores above theta; and a first wave, theta NEG), at
+    ``wave64`` (a captured 64-query wave's arguments; None: a synthetic
+    first wave) and at the benchmark's wave with k = 1,000, with the
+    bound: every score read once, the running top-k read and the new one
+    written."""
+    from repro_torch.kernels.merge_topk.ops import (MERGE_SHARED_KEYS,
+                                                    merge_cluster,
+                                                    merge_keys, merge_topk)
+    from repro_torch.kernels.merge_topk.ref import merge_wave_ref
+    from repro_torch.tools.merge_cases import (CASES, KS, N_QS, NEG,
+                                               case_args, merge_case)
+    checked = 0
+    for name in CASES:
+        for k in KS:
+            for n_q in N_QS:
+                a = case_args(merge_case(name, n_q, k, seed=SEED), DEVICE, k)
+                check_merge(merge_topk(*a), merge_wave_ref(*a),
+                            f"merge {name} k={k} n_q={n_q}")
+                checked += 1
+    for k, n_q, width in ((1000, 64, (4, 3000)), (20000, 4, (8, 6000))):
+        for name in ("random", "first_wave", "ties"):
+            a = case_args(merge_case(name, n_q, k, seed=SEED, width=width),
+                          DEVICE, k)
+            check_merge(merge_topk(*a), merge_wave_ref(*a),
+                        f"merge {name} k={k} n_q={n_q}")
+            checked += 1
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if wave64 is None:
+        wave64 = case_args(merge_case("first_wave", 64, 10, seed=SEED,
+                                      width=(32, 2560)), DEVICE, 10)
+    shapes = {what: case_args(merge_case(name, 256, k, seed=SEED,
+                                         width=(32, 2560)), DEVICE, k)
+              for what, name, k in (("benchmark", "steady", 10),
+                                    ("first_wave", "first_wave", 10),
+                                    ("deep", "steady", 1000),
+                                    ("deep_first_wave", "first_wave", 1000))}
+    shapes["wave64"] = wave64
+    out = {}
+    for what, a in shapes.items():
+        _, _, scores, _, _, k = a
+        check_merge(merge_topk(*a), merge_wave_ref(*a), f"merge {what}")
+        n_q, L = scores.shape[0], scores[0].numel()
+        flat = scores.reshape(n_q, L)
+        b_ms, b_by = bound(n_q * L * 4 + n_q * 4 + n_q * k * (8 + 8 + 4),
+                           0.0)
+        out[what] = dict(
+            ms=time_ms(lambda: merge_topk(*a)),
+            device_ms=device_ms(lambda: merge_topk(*a)),
+            plain_ms=time_ms(lambda: merge_wave_ref(*a)),
+            plain_device_ms=device_ms(lambda: merge_wave_ref(*a)),
+            library_ms=time_ms(lambda: torch.topk(flat, k, dim=1)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=dict(n_q=n_q, G=scores.shape[1], d_pad=scores.shape[2],
+                       k=k, blocks_a_row=merge_cluster(n_q, L, k, n_sm),
+                       workspace_keys=merge_keys(k),
+                       workspace_shared=merge_keys(k) <= MERGE_SHARED_KEYS,
+                       survivors=int((scores > a[3][:, None, None]).sum()),
+                       first_wave_rows=int((a[3] == NEG).sum())))
+    big = out.pop("benchmark")
+    return dict(
+        name="merge_topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/merge_topk.cu",
+        replaces="none (the JAX package merges with lax.top_k under XLA)",
+        bit_exact=True, cases_checked=checked,
+        library="torch.topk over the wave's rows, unfiltered, unmerged",
+        timed="one call: the filter, the top-k and the 2k -> k merge",
+        **{key: big[key] for key in ("ms", "device_ms", "plain_ms",
+                                     "plain_device_ms", "library_ms",
+                                     "bound_ms", "bound_by", "shape")},
+        first_wave=out["first_wave"], wave64=out["wave64"],
+        deep=out["deep"], deep_first_wave=out["deep_first_wave"])
 
 
 def finish_kernel_rows(rows: list[dict], later: dict, ra: dict) -> None:
@@ -6378,7 +6485,7 @@ def finish_kernel_rows(rows: list[dict], later: dict, ra: dict) -> None:
                           if k in ra["kernels"]}
 
 
-PHASE_SETS = ("all", "nccl", "nccl_full")
+PHASE_SETS = ("all", "nccl", "nccl_full", "merge")
 
 
 def selected_phases(argv: list) -> str:
@@ -6416,7 +6523,7 @@ def main() -> int:
         print(f"chip_smoke: the repo's src/repro_torch and {GOLDEN.name} "
               f"must sit beside this script", file=sys.stderr)
         return 2
-    if phases != "all" and torch.cuda.device_count() < NC_WORLD:
+    if phases.startswith("nccl") and torch.cuda.device_count() < NC_WORLD:
         print(f"chip_smoke: --phases {phases} needs {NC_WORLD} cards; this "
               f"machine has {torch.cuda.device_count()}", file=sys.stderr)
         return 2
@@ -6436,6 +6543,8 @@ def main() -> int:
             phase_nccl(geo, index, queries, saved, torch)
     elif phases == "nccl_full":
         phase_nccl_full(torch)
+    elif phases == "merge":
+        print(json.dumps({"kernels": [merge_row(torch)]}), flush=True)
     if phases != "all":
         log("total", phases=phases,
             seconds=round(time.perf_counter() - t_script, 1))

@@ -13,6 +13,9 @@ longer beat ``theta / exit_div``. With ``superblocks=True`` the same
 engine walks two levels (:func:`_search_batch_super`): the coarse
 superblock bounds order the walk and prune whole superblocks, and only a
 walked superblock's members are priced and planned, one wave each.
+On the card a wave's merge is one launch of ``kernels/merge_topk``, at
+every k; the CPU takes its plain version, two stable sorts, which the
+kernel equals bit for bit.
 
 ``engine="per_query"`` — each query walks its own bound-sorted order in
 groups (the reference oracle engine), scoring admitted clusters with
@@ -76,8 +79,10 @@ from repro_torch.core.plan import (PLAN_FIELDS, WavePlan,
                                    _union_doc_admission, doc_admission,
                                    plan_wave, resolve_block_d,
                                    wave_summaries)
+from repro_torch.core.topk import topk_stable
 from repro_torch.core.types import ClusterIndex, QueryBatch, TopK
 from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels.merge_topk.ops import merge_topk
 from repro_torch.kernels.query_terms import QueryTerms, query_terms
 from repro_torch.kernels.score_cluster_batch.ops import score_admitted
 from repro_torch.kernels.score_cluster_batch.ref import NEG, SCORE_CHUNK
@@ -219,13 +224,6 @@ def resolve_blocks(index: ClusterIndex, n_q: int,
         bd = a_bd if bd == "auto" else bd
     bv = None if cfg.block_v == "auto" else cfg.block_v
     return bq, resolve_block_d(index.d_pad, bd), bv
-
-
-def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis, value descending and index ascending on
-    ties — ``jax.lax.top_k``'s order, which ``torch.topk`` does not keep."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _int32(x, device) -> torch.Tensor:
@@ -487,23 +485,9 @@ def _merge_wave(top_scores: torch.Tensor, top_ids: torch.Tensor,
                 ids_flat: torch.Tensor, k: int) -> tuple:
     """Incremental threshold-filtered merge of one wave's (n_q, G, d_pad)
     scores into the running top-k: the top-k of the candidates above
-    theta, then a 2k -> k merge. Returns (top_scores, top_ids)."""
-    n_q = scores.shape[0]
-    cand = torch.where(scores > theta[:, None, None], scores,
-                       NEG).reshape(n_q, -1)
-    kc = min(k, cand.shape[1])
-    g_top, g_pos = topk_stable(cand, kc)
-    g_ids = torch.where(g_top > NEG, ids_flat[g_pos], -1)
-    if kc < k:
-        g_top = torch.cat([g_top, torch.full((n_q, k - kc), NEG,
-                                             device=g_top.device)], dim=1)
-        g_ids = torch.cat([g_ids, torch.full((n_q, k - kc), -1,
-                                             dtype=g_ids.dtype,
-                                             device=g_ids.device)], dim=1)
-    merged_s = torch.cat([top_scores, g_top], dim=1)
-    merged_i = torch.cat([top_ids, g_ids.to(torch.int32)], dim=1)
-    top_scores, sel = topk_stable(merged_s, k)
-    return top_scores, torch.gather(merged_i, 1, sel)
+    theta, joined with the running top-k: ``kernels/merge_topk`` on the
+    card, its plain version on the CPU. Returns (top_scores, top_ids)."""
+    return merge_topk(top_scores, top_ids, scores, theta, ids_flat, k)
 
 
 def _search_batch(index: ClusterIndex, terms: QueryTerms,

@@ -75,6 +75,10 @@ _SIGNATURES = {
     # n_drun, dblock, n_dblock, dmask_union; n_q, G, n_seg, d_pad,
     # block_q, n_qb, block_d, n_db, run slots, batch scope, stream
     "plan_wave": [_P] * 7 + [_I] + [_P] * 14 + [_I] * 10 + [_P],
+    # scores, theta, its stride, top scores, top ids, ids_flat, out scores,
+    # out ids, workspace, n_q, L, k, blocks a row, workspace keys a block,
+    # 16-byte loads, stream
+    "merge_topk": [_P, _P, _I64] + [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

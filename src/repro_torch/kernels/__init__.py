@@ -9,16 +9,17 @@ the main path went through the kernels.
 from __future__ import annotations
 
 # the kernels the main path launches: the bounds (K1), the executor (K2),
-# the wave planner (K3) and the per-query scorer (K4). compact_front (one
-# compaction) and score_docs (a flat batch on a dense map) are entry
-# points of their own that the main path no longer calls.
+# the wave planner (K3), the per-query scorer (K4) and the wave's merge.
+# compact_front (one compaction) and score_docs (a flat batch on a dense
+# map) are entry points of their own that the main path no longer calls.
 MAIN_PATH = ("segment_bound_gemm", "score_queue", "plan_wave",
-             "score_clusters")
+             "score_clusters", "merge_topk")
 
 
 def wrappers() -> dict:
     """Kernel name -> its dispatch wrapper (the launch counters live on
     these functions)."""
+    from repro_torch.kernels.merge_topk.ops import merge_topk
     from repro_torch.kernels.plan_wave.compact import compact_front
     from repro_torch.kernels.plan_wave.ops import plan_wave_kernel
     from repro_torch.kernels.score_cluster_batch.ops import score_admitted
@@ -29,7 +30,8 @@ def wrappers() -> dict:
             "plan_wave": plan_wave_kernel,
             "compact_front": compact_front,
             "score_clusters": score_clusters,
-            "score_docs": score_docs}
+            "score_docs": score_docs,
+            "merge_topk": merge_topk}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,7 +1,7 @@
 """The main path with its kernels swapped out, on whatever device the
 index lives on.
 
-:func:`swapped_wrappers` replaces the four kernel wrappers where the
+:func:`swapped_wrappers` replaces the five kernel wrappers where the
 engines look them up; with :func:`plain_versions` as the stand-in every
 engine runs each kernel's plain PyTorch version on the same (card)
 tensors, which is what ``chip_smoke.py`` and the ``gpu`` tests hold the
@@ -20,7 +20,7 @@ PLANNED = ("tile_cids", "tile_pos", "n_tiles", "qblock", "n_qblock",
 
 @contextlib.contextmanager
 def swapped_wrappers(make):
-    """Replace the four kernel wrappers where the main path looks them up
+    """Replace the five kernel wrappers where the main path looks them up
     (``make(name, wrapper)`` gives the stand-in); restore them on exit."""
     import repro_torch.core.bounds as bounds_mod
     import repro_torch.core.plan as plan_mod
@@ -28,7 +28,7 @@ def swapped_wrappers(make):
 
     sites = [(bounds_mod, "segment_bound_gemm"),
              (search_mod, "score_admitted"), (search_mod, "score_clusters"),
-             (plan_mod, "plan_wave_kernel")]
+             (plan_mod, "plan_wave_kernel"), (search_mod, "merge_topk")]
     originals = [(mod, name, getattr(mod, name)) for mod, name in sites]
     try:
         for mod, name, fn in originals:
@@ -76,8 +76,10 @@ def score_clusters_plain(tids, tw, dseg, dmask, cids, seg_admit, terms, i,
 def plain_versions(name, _):
     """Stand-ins for :func:`swapped_wrappers`: each kernel's plain
     PyTorch version on the same tensors."""
+    from repro_torch.kernels.merge_topk.ref import merge_wave_ref
     from repro_torch.kernels.segment_bound.ref import segment_bound_gemm_ref
     return {"segment_bound_gemm": segment_bound_gemm_ref,
             "score_admitted": score_admitted_plain,
             "score_clusters": score_clusters_plain,
-            "plan_wave_kernel": plan_wave_plain}[name]
+            "plan_wave_kernel": plan_wave_plain,
+            "merge_topk": merge_wave_ref}[name]

@@ -17,7 +17,9 @@ against the JAX reference, on the same numpy inputs:
 The ``gpu`` tests hold each CUDA kernel against its plain version on the
 card (the wave planner, K3, on ``repro_torch.tools.plan_cases``; its plain
 version is ``plan_wave``'s op-by-op code, whose CPU parity is
-tests/test_torch_plan.py's), the superblock walk and the pipelined
+tests/test_torch_plan.py's; the wave's merge bit for bit on
+``repro_torch.tools.merge_cases``, whose CPU oracle is
+tests/test_torch_merge.py's), the superblock walk and the pipelined
 engine on the card against the on-card plain path, and the lifecycle on
 the card (the churned golden world against the CPU path, a card snapshot
 a complete copy that later writes never reach, an engine over a
@@ -666,6 +668,123 @@ GOLDEN_CONFIGS = [
     dict(mu=1.0, eta=1.0, method="anytime", engine="batched",
          cluster_budget=4, block_q=4, block_d=8),
 ]
+
+
+def _same_merge(got, want, what):
+    """Scores bit for bit (+0.0 against -0.0 too) and ids exactly."""
+    (gs, gi), (ws, wi) = got, want
+    assert gs.dtype == ws.dtype and gi.dtype == wi.dtype, what
+    assert torch.equal(gs.cpu().view(torch.int32),
+                       ws.cpu().view(torch.int32)), (what, "scores")
+    assert torch.equal(gi.cpu(), wi.cpu()), (what, "ids")
+
+
+@pytest.mark.gpu
+def test_merge_kernel_on_card(cuda):
+    """The merge kernel equals the sort path bit for bit, on the card and
+    on the CPU, on every case of ``tools/merge_cases`` (ties, +-0.0, rows
+    short of k survivors, all-NEG rows, the first wave, a wave narrower
+    than k, a row width that is no multiple of 4) at k 1, 10, 100 and
+    1, 64, 256 queries, and on random waves of the benchmark's width (256
+    x 32 x 2,560) at several theta quantiles; one launch a call."""
+    from repro_torch.kernels.merge_topk.ops import merge_topk
+    from repro_torch.kernels.merge_topk.ref import merge_wave_ref
+    from repro_torch.tools.merge_cases import (CASES, KS, N_QS, case_args,
+                                               merge_case)
+    for name in CASES:
+        for k in KS:
+            for n_q in N_QS:
+                c = merge_case(name, n_q, k)
+                args = case_args(c, cuda, k)
+                before = merge_topk.launches
+                got = merge_topk(*args)
+                assert merge_topk.launches == before + 1
+                what = (name, k, n_q)
+                _same_merge(got, merge_wave_ref(*args), what)
+                _same_merge(got, merge_wave_ref(*case_args(c, "cpu", k)),
+                            what)
+    for name, n_q, k in (("quantiles", 256, 10), ("first_wave", 256, 10),
+                         ("random", 256, 10), ("quantiles", 64, 100),
+                         ("ties", 256, 10), ("signed_zero", 64, 10)):
+        c = merge_case(name, n_q, k, seed=1, width=(32, 2560))
+        args = case_args(c, cuda, k)
+        _same_merge(merge_topk(*args), merge_wave_ref(*args),
+                    (name, "benchmark width", n_q, k))
+
+
+@pytest.mark.gpu
+def test_merge_takes_the_kernel_up_to_its_depth(cuda):
+    """``_merge_wave`` launches the kernel at every k, once a call, and
+    equals the sort path bit for bit on the card and the CPU: k = 128 and
+    1,000 (the workspace in 32 KiB of shared memory), 5,000 (128 KiB),
+    20,000 (a workspace in global memory), and k = 1,000 at the
+    benchmark's width."""
+    from repro_torch.core.search import _merge_wave
+    from repro_torch.kernels.merge_topk.ops import merge_topk
+    from repro_torch.kernels.merge_topk.ref import merge_wave_ref
+    from repro_torch.tools.merge_cases import case_args, merge_case
+    runs = [(name, n_q, k, width)
+            for k, n_q, width in ((128, 64, (4, 300)), (1000, 64, (4, 3000)),
+                                  (5000, 8, (4, 9000)),
+                                  (20000, 4, (8, 6000)))
+            for name in ("random", "first_wave", "ties")]
+    runs += [(name, 256, 1000, (32, 2560))
+             for name in ("first_wave", "quantiles")]
+    for name, n_q, k, width in runs:
+        c = merge_case(name, n_q, k, seed=2, width=width)
+        args = case_args(c, cuda, k)
+        before = merge_topk.launches
+        got = _merge_wave(*args)
+        assert merge_topk.launches == before + 1, (name, k)
+        _same_merge(got, merge_wave_ref(*args), (name, n_q, k))
+        _same_merge(got, merge_wave_ref(*case_args(c, "cpu", k)),
+                    (name, n_q, k, "cpu"))
+
+
+@pytest.mark.gpu
+def test_merge_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.merge_topk.ops import merge_topk
+    from repro_torch.tools.merge_cases import case_args, merge_case
+    ts, ti, sc, th, ids, k = case_args(merge_case("random", 8, 10), cuda, 10)
+    with pytest.raises(TypeError, match="scores"):
+        merge_topk(ts, ti, sc.double(), th, ids, k)
+    with pytest.raises(TypeError, match="ids_flat"):
+        merge_topk(ts, ti, sc, th, ids.long(), k)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_topk(ts, ti, sc, th, ids.cpu(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_topk(ts, ti, sc.transpose(1, 2), th, ids, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_topk(ts.t().contiguous().t(), ti, sc, th, ids, k)
+    with pytest.raises(ValueError, match="theta"):
+        merge_topk(ts, ti, sc, th.cpu(), ids, k)
+    with pytest.raises(ValueError, match="at least one"):
+        merge_topk(ts[:, :0], ti[:, :0], sc, th, ids, 0)
+
+
+@pytest.mark.gpu
+def test_walks_on_card_count_kernel_merges(cuda):
+    """On the card every wave of the batched walk merges in one launch of
+    the kernel, and every walked superblock of the two-level walk, at k =
+    10 and at k = 200, with the answers of the on-card plain path."""
+    from repro_torch.kernels.merge_topk.ops import merge_topk
+    index, queries = _card_world(cuda)
+    for k in (10, 200):
+        for two_level in (False, True):
+            cfg = SearchConfig(k=k, mu=0.8, eta=1.0, engine="batched",
+                               block_q=4, block_d=8, bounds_impl="gemm",
+                               superblocks=two_level)
+            stats: dict = {}
+            before = merge_topk.launches
+            got = retrieve(index, queries, cfg, device=cuda, stats=stats)
+            merges = merge_topk.launches - before
+            if two_level:
+                assert 1 <= merges <= stats["waves"], (k, two_level)
+            else:
+                assert merges == stats["waves"] >= 1, (k, two_level)
+            with swapped_wrappers(plain_versions):
+                want = retrieve(index, queries, cfg, device=cuda)
+            _assert_fields(got, want, (k, two_level))
 
 
 @pytest.mark.gpu
